@@ -1,0 +1,553 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU (H100).
+
+Run from the repository root on a machine with a CUDA device and the CUDA
+toolkit:
+
+    python3 chip_smoke.py [--out DIR] [--profile]
+
+Phases, one JSON line each on stdout; any failure raises and exits non-zero:
+
+1. device  - card name and power limit (nvidia-smi);
+2. build   - nvcc builds the three flash-attention kernels from
+             horovod_tpu_torch/ops/csrc, both sources at once;
+3. kernels - each CUDA kernel against its plain PyTorch version on the same
+             card tensors: the GPT-2-small shape (bf16, causal and not) and
+             small fp32/bf16 shapes with offsets, a fully-future block,
+             Tq != Tk, a ragged length, and return_lse with a dlse cotangent;
+             then flash_attention's autograd on the card (offsets, dlse)
+             against float64 attention;
+4. parity  - a small fp32 GptDecoder at T=1024 on the card, flash
+             kernels against dense attention with the same weights:
+             logits and gradients;
+5. timing  - each kernel, its plain version and torch's
+             scaled_dot_product_attention (yardstick only; the port never
+             calls it) at the GPT-2-small shape, beside the bound;
+6. train   - the main path: init() on NCCL, GptSmall (bf16 compute, fp32
+             params) at seq 1024 and batch 8, make_train_step with AdamW and
+             bf16 gradient compression, 5 steps on one fixed batch; the loss
+             must be finite and fall, and each kernel must have launched 12
+             times per step.
+
+Then the kernels line, the nvidia-smi line, and the final
+``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes the nvcc
+logs there; ``--profile`` adds one profiled train step (device time by
+kernel, device idle share) and, with ``--out``, its Chrome trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+MAIN = dict(b=8, t=1024, h=12, d=64)  # GPT-2 small, per-GPU batch 8
+STEPS = 5
+REPLACES = {
+    "flash_fwd": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "horovod_tpu/ops/flash_attention.py:70"),
+    "flash_bwd_dq": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                     "horovod_tpu/ops/flash_attention.py:118"),
+    "flash_bwd_dkv": ("horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                      "horovod_tpu/ops/flash_attention.py:155"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+
+
+def torch_norm(x) -> float:
+    return float(x.double().norm()) if x.numel() else 0.0
+
+
+def close(name, got, want, rtol, atol, row_atol=0.0, norm_tol=None):
+    """Elementwise |got - want| <= atol + row_atol * max|want over its row|
+    + rtol * |want|, a row being the last dim (one query's output, one
+    key's gradient), and with ``norm_tol`` also the normwise
+    ||got - want|| / ||want|| <= norm_tol. Returns (max absolute error,
+    normwise error); raises on disagreement."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    row_max = want.abs().amax(-1, keepdim=True) if want.numel() else want
+    bad = err > atol + row_atol * row_max + rtol * want.abs()
+    norm_err = float(torch_norm(got - want) / max(torch_norm(want), 1e-30))
+    if bool(bad.any()) or not math.isfinite(max_err):
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements off (max abs err {max_err}, "
+            f"rtol {rtol}, atol {atol}, row atol {row_atol})")
+    if norm_tol is not None and not norm_err <= norm_tol:
+        raise AssertionError(f"{name}: normwise error {norm_err} exceeds "
+                             f"{norm_tol}")
+    return max_err, norm_err
+
+
+def tolerances(dtype):
+    """kind -> (rtol, atol, row_atol, norm_tol). fp32: the reference
+    tests' tolerances. bf16: the kernel tiles by 64 and the plain version
+    by 512, so p is rounded to bf16 against another running max and sums
+    run in another order; each element may be off by a few bf16 ulps
+    (2^-8 relative) of its own value or of the largest value in its row,
+    and the whole tensor by about one ulp in norm. Scaling by the row
+    keeps late causal rows, which average hundreds of keys and are far
+    smaller than the first rows, to their own resolution."""
+    import torch
+    if dtype == torch.float32:
+        return dict(fwd=(2e-4, 2e-5, 0.0, None), grad=(2e-3, 2e-4, 0.0, None),
+                    lse=(1e-4, 1e-5, 0.0, None))
+    return dict(fwd=(2e-2, 1e-6, 2e-2, 1e-2), grad=(2e-2, 1e-6, 2e-2, 1e-2),
+                lse=(1e-4, 2e-3, 0.0, None))
+
+
+def kernel_inputs(case, device):
+    import torch
+    g = torch.Generator().manual_seed(case.get("seed", 0))
+    dt = case["dtype"]
+    b, tq, tk, h, d = case["b"], case["tq"], case["tk"], case["h"], case["d"]
+    q = torch.randn(b, tq, h, d, generator=g).to(device, dt)
+    k = torch.randn(b, tk, h, d, generator=g).to(device, dt)
+    v = torch.randn(b, tk, h, d, generator=g).to(device, dt)
+    do = torch.randn(b, tq, h, d, generator=g).to(device, dt)
+    dlse = torch.randn(b, h, tq, generator=g).to(device) \
+        if case.get("dlse") else torch.zeros(b, h, tq, device=device)
+    return q, k, v, do, dlse
+
+
+def check_case(case, device):
+    """Each kernel and its plain version on identical card tensors: the
+    backward kernels get the plain forward's lse and corr."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, dlse = kernel_inputs(case, device)
+    args = (case["causal"], case["d"] ** -0.5, case.get("q_off", 0.0),
+            case.get("k_off", 0.0), case["bq"], case["bk"])
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, *args)
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2)
+    corr = (dlse - delta).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_p, corr, *args)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, corr, *args)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, corr, *args)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, corr, *args)
+    torch.cuda.synchronize()
+    name = case["name"]
+    live = lse_p > fa.NEG_INF / 2  # o of fully masked rows is tile-dependent
+    o_live = live.transpose(1, 2)[..., None]
+    pairs = {  # output -> (kernel, got, want, tolerance kind)
+        "o": ("flash_fwd", torch.where(o_live, o.float(), 0.0),
+              torch.where(o_live, o_p.float(), 0.0), "fwd"),
+        "lse": ("flash_fwd", torch.where(live, lse, 0.0),
+                torch.where(live, lse_p, 0.0), "lse"),
+        "dq": ("flash_bwd_dq", dq, dq_p, "grad"),
+        "dk": ("flash_bwd_dkv", dk, dk_p, "grad"),
+        "dv": ("flash_bwd_dkv", dv, dv_p, "grad"),
+    }
+    errs, norms, tols = {}, {}, {}
+    for out, (kern, got, want, kind) in pairs.items():
+        tol = tolerances(case["dtype"])[kind]
+        tols[out] = list(tol)
+        err, norms[out] = close(f"{name}/{out}", got, want, *tol)
+        errs[kern] = max(errs.get(kern, 0.0), err)
+    if not bool(torch.equal(live, lse > fa.NEG_INF / 2)):
+        raise AssertionError(f"{name}: dead rows differ")
+    if case.get("future"):
+        # a block entirely in the future: lse NEG_INF, o and grads zero
+        if not (bool((lse < -1e29).all()) and bool((o == 0).all())
+                and bool((dq == 0).all()) and bool((dk == 0).all())):
+            raise AssertionError(f"{name}: fully-future block not empty")
+    return errs, norms, tols
+
+
+def kernel_cases():
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    m = dict(b=MAIN["b"], tq=MAIN["t"], tk=MAIN["t"], h=MAIN["h"],
+             d=MAIN["d"], bq=512, bk=512, dtype=bf16)
+    small = dict(b=2, tq=256, tk=256, h=4, bq=128, bk=128)
+    return [
+        dict(name="main_bf16_causal", causal=True, **m),
+        dict(name="main_bf16_full", causal=False, **m),
+        dict(name="f32_d64_causal", d=64, causal=True, dtype=f32, **small),
+        dict(name="f32_d64_full", d=64, causal=False, dtype=f32, **small),
+        dict(name="f32_d128_lse_dlse", b=2, tq=128, tk=128, h=2, d=128,
+             bq=128, bk=128, causal=False, dtype=f32, dlse=True, seed=3),
+        dict(name="f32_d32_offsets_tq_ne_tk", b=2, tq=64, tk=128, h=2, d=32,
+             bq=64, bk=128, causal=True, q_off=64.0, k_off=0.0, dtype=f32,
+             dlse=True, seed=4),
+        dict(name="f32_d32_fully_future", b=2, tq=64, tk=128, h=2, d=32,
+             bq=64, bk=128, causal=True, q_off=-1000.0, dtype=f32,
+             future=True, seed=5),
+        dict(name="f32_d64_masked_rows", b=1, tq=128, tk=128, h=2, d=64,
+             bq=64, bk=64, causal=True, q_off=-10.0, dtype=f32, seed=6),
+        dict(name="f32_d64_ragged_200", b=2, tq=200, tk=200, h=2, d=64,
+             bq=200, bk=200, causal=True, dtype=f32, seed=7),
+        dict(name="bf16_d128_causal", b=2, tq=256, tk=256, h=2, d=128,
+             bq=128, bk=128, causal=True, dtype=bf16, seed=8),
+        dict(name="bf16_d32_offsets", b=2, tq=128, tk=256, h=2, d=32,
+             bq=128, bk=128, causal=True, q_off=128.0, dtype=bf16,
+             dlse=True, seed=9),
+    ]
+
+
+def autograd_check(device):
+    """flash_attention end to end on the card (return_lse, a dlse
+    cotangent, global offsets, Tq != Tk) against float64 dense attention
+    with the same mask, differentiated by autograd on the CPU. The float64
+    reference keeps the check independent of the host's fp32 BLAS."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator().manual_seed(11)
+    tq, tk, q_off = 128, 256, 128.0
+    q = torch.randn(2, tq, 2, 64, generator=g)
+    k, v = (torch.randn(2, tk, 2, 64, generator=g) for _ in range(2))
+    do = torch.randn(2, tq, 2, 64, generator=g)
+    dl = torch.randn(2, 2, tq, generator=g)
+
+    ts = [x.to(device).detach().requires_grad_(True) for x in (q, k, v)]
+    o, lse = fa.flash_attention(*ts, causal=True, q_offset=q_off,
+                                k_offset=0.0, return_lse=True, block_q=64,
+                                block_k=64)
+    ((o * do.to(device)).sum() + (lse * dl.to(device)).sum()).backward()
+    got = [o.detach().cpu(), lse.detach().cpu()] + [t.grad.cpu() for t in ts]
+
+    rs = [x.detach().double().requires_grad_(True) for x in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", rs[0], rs[1]) / 8.0
+    visible = (q_off + torch.arange(tq))[:, None] >= torch.arange(tk)[None]
+    s = torch.where(visible, s, float("-inf"))
+    lse_r = torch.logsumexp(s, -1)
+    o_r = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), rs[2])
+    ((o_r * do.double()).sum() + (lse_r * dl.double()).sum()).backward()
+    want = [o_r.detach(), lse_r.detach()] + [r.grad for r in rs]
+
+    errs = {}
+    for i, name in enumerate(("o", "lse", "dq", "dk", "dv")):
+        rtol, atol = (2e-4, 2e-5) if i < 2 else (2e-3, 2e-4)
+        errs[name] = close(f"autograd/{name}", got[i], want[i].float(), rtol,
+                           atol)[0]
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# timing
+
+
+def time_ms(fn, iters, warmup=3):
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bounds(b, t, h, d, causal, dtype_name):
+    """Least time (ms) per kernel: each input read once and each output
+    written once at the memory rate, against the products this run's data
+    needs (only the causally visible q-k pairs) at the tensor-core rate.
+    The exp and elementwise work is not counted."""
+    esize = 2 if dtype_name == "bfloat16" else 4
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    x = b * t * h * d * esize          # one [B, T, H, D] tensor
+    row = b * h * t * 4                # one [B, H, T] fp32 tensor
+    work = {  # name -> (bytes, flops)
+        "flash_fwd": (3 * x + x + row, 2 * 2 * pairs * d),
+        "flash_bwd_dq": (4 * x + 2 * row + x, 3 * 2 * pairs * d),
+        "flash_bwd_dkv": (4 * x + 2 * row + 2 * x, 4 * 2 * pairs * d),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations",
+                     nbytes, flops)
+    return out
+
+
+def timing(device):
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as fa
+    case = dict(name="timing", causal=True, b=MAIN["b"], tq=MAIN["t"],
+                tk=MAIN["t"], h=MAIN["h"], d=MAIN["d"], bq=512, bk=512,
+                dtype=torch.bfloat16)
+    q, k, v, do, dlse = kernel_inputs(case, device)
+    args = (True, MAIN["d"] ** -0.5, 0.0, 0.0, 512, 512)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    corr = (dlse - (do.float() * o.float()).sum(-1).transpose(1, 2)) \
+        .contiguous()
+    runs = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *args),
+                      lambda: fa.flash_fwd_plain(q, k, v, *args)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, corr, *args),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, corr, *args)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, corr, *args),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, corr, *args)),
+    }
+    res = {}
+    for name, (kern, plain) in runs.items():
+        # plain, kernel, kernel, plain: each reported time is the mean of
+        # its two turns
+        p1 = time_ms(plain, 3, warmup=1)
+        k1 = time_ms(kern, 50)
+        k2 = time_ms(kern, 50)
+        p2 = time_ms(plain, 3, warmup=1)
+        res[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                     "ms_turns": [k1, k2], "plain_ms_turns": [p1, p2]}
+    # yardstick: one library call on the same inputs in SDPA's [B, H, T, D]
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True), 50)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(out, (qg, kg, vg), doh)
+    sdpa_fwd_bwd = time_ms(fwd_bwd, 30)
+    # no single library call computes dq or dk/dv alone: SDPA's whole
+    # backward (its forward and backward, less its forward) is the joint
+    # yardstick of the two backward kernels together
+    res["flash_fwd"].update(library_ms=sdpa_fwd, library_ms_joint=None)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        res[name].update(library_ms=None,
+                         library_ms_joint=sdpa_fwd_bwd - sdpa_fwd)
+    bnd = bounds(MAIN["b"], MAIN["t"], MAIN["h"], MAIN["d"], True,
+                 "bfloat16")
+    for name, (ms, by, nbytes, flops) in bnd.items():
+        res[name].update(bound_ms=ms, bound_by=by, bytes=nbytes,
+                         flops=flops)
+    return res, {"sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd,
+                 "sdpa_bwd_ms": sdpa_fwd_bwd - sdpa_fwd}
+
+
+# ---------------------------------------------------------------------------
+# model phases
+
+
+def parity(device):
+    """A small fp32 GptDecoder at T=1024 on the card: every layer on the
+    flash kernels against the same weights with dense attention
+    (``use_flash=False``: fp32 cuBLAS, TF32 off), logits and gradients."""
+    import torch
+    from horovod_tpu_torch.models.gpt import GptDecoder, lm_loss
+    cfg = dict(vocab=256, layers=2, hidden=128, heads=2, mlp_dim=512,
+               max_len=1024, dtype=torch.float32)
+    base = GptDecoder(**cfg)
+    base.reset_parameters(torch.Generator().manual_seed(1))
+    tokens = torch.randint(0, 256, (2, 1024),
+                           generator=torch.Generator().manual_seed(2))
+    tokens = tokens.to(device)
+    results = []
+    for use_flash in (True, False):
+        model = GptDecoder(use_flash=use_flash, **cfg)
+        model.load_state_dict(base.state_dict())
+        model.to(device)
+        logits = model(tokens)
+        loss, _ = lm_loss(model, tokens)
+        loss.backward()
+        results.append((logits.detach().cpu(),
+                        {n: p.grad.cpu() for n, p in
+                         model.named_parameters()}))
+    (lg, gg), (ld, gd) = results
+    if lg.shape != (2, 1024, 256) or not bool(torch.isfinite(lg).all()):
+        raise AssertionError("parity: bad logits")
+    err = {"logits": close("parity/logits", lg, ld, 2e-4, 2e-5)[0]}
+    err["grads"] = max(close(f"parity/grad/{n}", gg[n], gd[n], 2e-3, 2e-4)[0]
+                       for n in gd)
+    return err
+
+
+def profile_step(step, batch, out_dir):
+    """One more train step under torch.profiler: device time by kernel
+    (top 15) and the device's busy share of the step's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch).loss.item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if out_dir:
+        prof.export_chrome_trace(os.path.join(out_dir, "train_step.json"))
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+    # device-side kernels only: an operator's entry, and a user annotation
+    # such as the optimizer step's, repeats its kernels' time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
+    events.sort(key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    return {"phase": "profile", "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
+                     "count": e.count} for e in events[:15]]}
+
+
+def train(device, profile_dir=None, profile=False):
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.gpt import GptSmall, lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import dp
+    hvd.init()  # cuda:local_rank on NCCL, world size from the env (1)
+    try:
+        model = GptSmall(dtype=torch.bfloat16)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        step = dp.make_train_step(model, lm_loss, opt,
+                                  compression=hvd.Compression.bf16)
+        tokens = torch.randint(0, 50257, (MAIN["b"] * hvd.size(), MAIN["t"]),
+                               generator=torch.Generator().manual_seed(0))
+        batch = dp.shard_batch(tokens).to(hvd.device())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        losses, step_ms = [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            out = step(batch)
+            losses.append(out.loss.item())  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = fa.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_step(step, batch, profile_dir) if profile else None
+    finally:
+        hvd.shutdown()
+    layers = len(model.blocks)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall {losses}")
+    want = layers * STEPS
+    if counts != {k: want for k in counts}:
+        raise AssertionError(f"train: launches {counts}, want {want} each")
+    steady = step_ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    return counts, prof, {
+        "phase": "train", "model": "GptSmall", "params": n_params,
+        "batch": MAIN["b"], "seq": MAIN["t"], "steps": STEPS,
+        "losses": losses, "step_ms": step_ms,
+        "steady_step_ms": mean_ms,
+        "tokens_per_s": MAIN["b"] * MAIN["t"] / (mean_ms / 1e3),
+        "peak_mem_bytes": peak, "launches": counts,
+        "backend": "nccl", "world_size": 1}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None,
+                    help="directory for the nvcc logs (and the trace)")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one extra train step after the counted "
+                         "ones (torch.profiler)")
+    opts = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from horovod_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    card = card_line()
+    emit({"phase": "device", "nvidia_smi": card,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    per_lib = _build.build()
+    ptxas = {}
+    for name in _build.SOURCES:
+        log = _build.build_log(name)
+        ptxas[name] = [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln]
+        if opts.out:
+            os.makedirs(opts.out, exist_ok=True)
+            with open(os.path.join(opts.out, f"nvcc_{name}.log"), "w") as f:
+                f.write(log)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_library_s": per_lib, "ptxas": ptxas})
+
+    max_err = {}
+    for case in kernel_cases():
+        errs, norms, tols = check_case(case, device)
+        emit({"phase": "kernels", "case": case["name"], "max_abs_err": errs,
+              "normwise_err": norms,
+              "tolerance_rtol_atol_rowatol_norm": tols})
+        if case["name"] == "main_bf16_causal":
+            max_err = errs
+    emit({"phase": "kernels", "case": "autograd_f32",
+          "max_abs_err": autograd_check(device)})
+
+    emit({"phase": "parity", "max_abs_err": parity(device)})
+
+    times, sdpa = timing(device)
+    emit({"phase": "timing", "shape": MAIN, "dtype": "bfloat16",
+          "causal": True, "kernels": times, **sdpa})
+
+    counts, prof, train_line = train(device, opts.out, opts.profile)
+    emit(train_line)
+    if prof is not None:
+        emit(prof)
+
+    kernels = []
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        src, replaces = REPLACES[name]
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": max_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_ms_joint": t["library_ms_joint"]})
+    emit({"kernels": kernels})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

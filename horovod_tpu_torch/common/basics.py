@@ -1,0 +1,140 @@
+"""Process context: init/shutdown/rank/size/local_rank.
+
+Counterpart of ``horovod_tpu/common/basics.py``. Topology comes from the same
+launcher env contract (``HOROVOD_RANK``, ``HOROVOD_SIZE``,
+``HOROVOD_LOCAL_RANK``; reference basics.py:76-82). Where the reference
+builds a device mesh, the port runs one process per GPU and creates a
+``torch.distributed`` process group: NCCL on the card, gloo for
+``device="cpu"``. The group exists even at world size 1, so the gradient
+allreduce always runs through the same backend.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from datetime import timedelta
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from horovod_tpu_torch.common.env import env_int
+from horovod_tpu_torch.parallel.mesh import MeshSpec
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``cuda:local_rank``; without CUDA that raises unless
+    the caller asks for the CPU explicitly (``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "horovod_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run on the CPU explicitly")
+    return torch.device("cuda", env_int("HOROVOD_LOCAL_RANK"))
+
+
+class _Context:
+    """Singleton process context."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.initialized = False
+        self.rank = 0
+        self.size = 1
+        self.local_rank = 0
+        self.device: Optional[torch.device] = None
+
+    def init(self, device=None, mesh_spec: Optional[MeshSpec] = None,
+             store: Optional[dist.Store] = None,
+             timeout: timedelta = timedelta(minutes=5)):
+        with self._lock:
+            if self.initialized:
+                return
+            dev = resolve_device(device)
+            rank = env_int("HOROVOD_RANK")
+            size = env_int("HOROVOD_SIZE")
+            local_rank = env_int("HOROVOD_LOCAL_RANK")
+            (mesh_spec or MeshSpec()).resolve(size)
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
+                backend = "nccl"
+            elif dev.type == "cpu":
+                backend = "gloo"
+            else:
+                raise ValueError(f"unsupported device {dev}")
+            if store is None:
+                store = _default_store(rank, size, timeout)
+            dist.init_process_group(backend, store=store, rank=rank,
+                                    world_size=size, timeout=timeout)
+            self.rank, self.size, self.local_rank = rank, size, local_rank
+            self.device = dev
+            self.initialized = True
+
+    def shutdown(self):
+        with self._lock:
+            if not self.initialized:
+                return
+            dist.destroy_process_group()
+            self.initialized = False
+            self.device = None
+
+
+def _default_store(rank: int, size: int, timeout: timedelta) -> dist.Store:
+    addr, port = os.environ.get("MASTER_ADDR"), os.environ.get("MASTER_PORT")
+    if addr and port:
+        return dist.TCPStore(addr, int(port), size, is_master=rank == 0,
+                             timeout=timeout)
+    if size == 1:
+        return dist.HashStore()
+    raise ValueError(
+        f"world size {size} needs a rendezvous: set MASTER_ADDR and "
+        "MASTER_PORT, or pass store=")
+
+
+_ctx = _Context()
+
+
+def init(device=None, mesh_spec: Optional[MeshSpec] = None,
+         store: Optional[dist.Store] = None) -> None:
+    """Join the job. ``device=None`` runs on ``cuda:local_rank`` and raises
+    when CUDA is absent; ``device="cpu"`` runs on gloo. ``store`` overrides
+    the rendezvous (default: ``MASTER_ADDR``/``MASTER_PORT``, or a local
+    store at world size 1)."""
+    _ctx.init(device=device, mesh_spec=mesh_spec, store=store)
+
+
+def shutdown() -> None:
+    _ctx.shutdown()
+
+
+def is_initialized() -> bool:
+    return _ctx.initialized
+
+
+def _require_init():
+    if not _ctx.initialized:
+        raise ValueError("horovod_tpu_torch has not been initialized; "
+                         "call horovod_tpu_torch.init()")
+
+
+def rank() -> int:
+    _require_init()
+    return _ctx.rank
+
+
+def size() -> int:
+    _require_init()
+    return _ctx.size
+
+
+def local_rank() -> int:
+    _require_init()
+    return _ctx.local_rank
+
+
+def device() -> torch.device:
+    """The device this process was initialized on."""
+    _require_init()
+    return _ctx.device

@@ -1,0 +1,80 @@
+"""Decoder-only transformer LM (GPT family).
+
+Counterpart of ``horovod_tpu/models/gpt.py`` (``GptDecoder``, ``GptSmall``,
+``GptMedium``): token and position embeddings, N causal pre-LN blocks, a
+final LayerNorm and an LM head tied to the token embedding, with fp32
+logits. With ``use_flash=True`` (the default) every block's attention takes
+the flash kernels from ``HOROVOD_FLASH_MIN_SEQ`` tokens up.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from horovod_tpu_torch.models.transformer import (Dense, EncoderBlock,
+                                                  LayerNorm)
+
+
+class GptDecoder(nn.Module):
+    """Causal LM: embeddings -> N decoder blocks -> tied LM head."""
+
+    def __init__(self, vocab: int = 50257, layers: int = 12,
+                 hidden: int = 768, heads: int = 12, mlp_dim: int = 3072,
+                 max_len: int = 1024, dtype: torch.dtype = torch.bfloat16,
+                 use_flash: bool = True):
+        super().__init__()
+        self.dtype = dtype
+        self.embed = nn.Parameter(torch.empty(vocab, hidden))
+        self.pos_embed = nn.Parameter(torch.empty(max_len, hidden))
+        self.blocks = nn.ModuleList(
+            EncoderBlock(hidden, heads, mlp_dim, dtype, use_flash=use_flash,
+                         causal=True) for _ in range(layers))
+        self.ln_f = LayerNorm(hidden, dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Random weights from ``generator``: N(0, 0.02) embeddings,
+        LeCun-normal Dense kernels (flax's default), zero biases, unit
+        LayerNorm scales."""
+        with torch.no_grad():
+            self.embed.normal_(0.0, 0.02, generator=generator)
+            self.pos_embed.normal_(0.0, 0.02, generator=generator)
+            for mod in self.modules():
+                if isinstance(mod, Dense):
+                    fan_in = mod.weight.shape[1]
+                    mod.weight.normal_(0.0, fan_in ** -0.5,
+                                       generator=generator)
+                    mod.bias.zero_()
+                elif isinstance(mod, LayerNorm):
+                    mod.weight.fill_(1.0)
+                    mod.bias.zero_()
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        t = tokens.shape[1]
+        x = F.embedding(tokens, self.embed).to(self.dtype)
+        x = x + self.pos_embed[:t].to(self.dtype)[None]
+        for block in self.blocks:
+            x = block(x)
+        x = self.ln_f(x)
+        logits = x @ self.embed.to(self.dtype).t()  # tied LM head
+        return logits.float()
+
+
+def GptSmall(**kw) -> GptDecoder:
+    """GPT-2 small geometry (124M params)."""
+    return GptDecoder(layers=12, hidden=768, heads=12, mlp_dim=3072, **kw)
+
+
+def GptMedium(**kw) -> GptDecoder:
+    """GPT-2 medium geometry (350M params)."""
+    return GptDecoder(layers=24, hidden=1024, heads=16, mlp_dim=4096, **kw)
+
+
+def lm_loss(model: GptDecoder, tokens: torch.Tensor):
+    """Next-token cross entropy in fp32, averaged over positions; the loss of
+    the reference's GPT example. Returns ``(loss, {})``."""
+    logits = model(tokens)
+    loss = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                           tokens[:, 1:].reshape(-1))
+    return loss, {}

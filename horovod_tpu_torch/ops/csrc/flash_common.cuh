@@ -1,0 +1,239 @@
+// Shared pieces of the flash-attention kernels for Hopper (sm_90a).
+//
+// Layout: q/k/v/o and their gradients are [B, T, H, D] contiguous, read in
+// place (no [B*H, T, D] transpose); lse and corr are [B, H, Tq] fp32. One
+// block of 4 warps owns a 64-row tile of its own sequence (q rows for the
+// forward and dq kernels, k rows for dk/dv) and streams the other sequence
+// through shared memory in tiles of BN rows. Each warp owns 16 of the 64
+// rows, so the softmax bookkeeping of a row never leaves its warp.
+//
+// Types: bf16 takes the tensor cores through WMMA m16n16k16 with fp32
+// accumulation; fp32 stays full fp32 (scalar FMA, no TF32), which is what the
+// reference's fp32 tolerances need.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace hvdflash {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float NEG_INF = -1e30f;  // the reference's NEG_INF, not -inf
+constexpr int BM = 64;             // rows of the block's own tile
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int WROWS = 16;          // rows per warp
+
+// BN: rows of a streamed tile. PAD: element padding of a shared-memory row
+// (bf16: keeps WMMA's 32-byte alignment; fp32: staggers banks for the
+// scalar loops).
+template <typename T> struct Cfg;
+template <> struct Cfg<float> { static constexpr int BN = 32, PAD = 1; };
+template <> struct Cfg<bf16> { static constexpr int BN = 64, PAD = 8; };
+
+__host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as astype does
+}
+
+// Copy rows [row0, row0 + ROWS) of one (batch, head) slice into shared
+// memory (row stride LD); rows at or past t_len are zero. `src` points at
+// element (b, 0, h, 0); `rs` is the row stride H * D.
+template <typename T, int ROWS, int D, int LD>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
+                                          int row0, int t_len, size_t rs) {
+  constexpr int VEC =
+      ((LD * (int)sizeof(T)) % 16 == 0) ? 16 / (int)sizeof(T) : 1;
+  constexpr int CHUNKS = D / VEC;
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
+    const int t = row0 + r;
+    if constexpr (VEC == 1) {
+      dst[r * LD + c] = t < t_len ? src[(size_t)t * rs + c] : from_f<T>(0.f);
+    } else {
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (t < t_len)
+        val = *reinterpret_cast<const uint4*>(src + (size_t)t * rs + c);
+      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+    }
+  }
+}
+
+// One block-wide store of a fp32 shared-memory tile (row stride LD) into
+// rows [row0, row0 + BM) of a [B, T, H, D] slice, skipping rows >= t_len;
+// each row is divided by max(row_div[r], 1e-30) when row_div is given.
+template <typename T, int D, int LD>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst,
+                                           const float* src, int row0,
+                                           int t_len, size_t rs,
+                                           const float* row_div) {
+  for (int i = threadIdx.x; i < BM * D; i += THREADS) {
+    const int r = i / D, c = i % D;
+    const int t = row0 + r;
+    if (t >= t_len) continue;
+    float x = src[r * LD + c];
+    if (row_div != nullptr) x = x / fmaxf(row_div[r], 1e-30f);
+    dst[(size_t)t * rs + c] = from_f<T>(x);
+  }
+}
+
+// ---- warp-level tile products on shared memory ---------------------------
+// warp_mm_abT: C[16 x N] = A[16 x K] . B[N x K]^T   (C fp32, overwritten)
+// warp_mm_ab_acc: C[16 x N] += A[16 x K] . B[K x N] (C fp32, accumulated)
+// A and B are row-major element tiles; LDx are row strides in elements.
+
+template <int N, int K, int LDA, int LDB, int LDC>
+__device__ __forceinline__ void warp_mm_abT(float* C, const float* A,
+                                            const float* B) {
+  static_assert(N % 32 == 0, "N must be a multiple of 32");
+  constexpr int NC = N / 32;
+  const int lane = threadIdx.x & 31;
+  float acc[WROWS][NC];
+#pragma unroll
+  for (int r = 0; r < WROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[r][j] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < K; ++kk) {
+    float b[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) b[j] = B[(lane + 32 * j) * LDB + kk];
+#pragma unroll
+    for (int r = 0; r < WROWS; ++r) {
+      const float a = A[r * LDA + kk];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) acc[r][j] = fmaf(a, b[j], acc[r][j]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < WROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) C[r * LDC + lane + 32 * j] = acc[r][j];
+}
+
+template <int N, int K, int LDA, int LDB, int LDC>
+__device__ __forceinline__ void warp_mm_ab_acc(float* C, const float* A,
+                                               const float* B) {
+  static_assert(N % 32 == 0, "N must be a multiple of 32");
+  constexpr int NC = N / 32;
+  const int lane = threadIdx.x & 31;
+  float acc[WROWS][NC];
+#pragma unroll
+  for (int r = 0; r < WROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[r][j] = C[r * LDC + lane + 32 * j];
+#pragma unroll 4
+  for (int kk = 0; kk < K; ++kk) {
+    float b[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) b[j] = B[kk * LDB + lane + 32 * j];
+#pragma unroll
+    for (int r = 0; r < WROWS; ++r) {
+      const float a = A[r * LDA + kk];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) acc[r][j] = fmaf(a, b[j], acc[r][j]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < WROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) C[r * LDC + lane + 32 * j] = acc[r][j];
+}
+
+template <int N, int K, int LDA, int LDB, int LDC>
+__device__ __forceinline__ void warp_mm_abT(float* C, const bf16* A,
+                                            const bf16* B) {
+  using namespace nvcuda;
+  static_assert(N % 16 == 0 && K % 16 == 0, "WMMA tiles are 16x16x16");
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[N / 16];
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+#pragma unroll
+  for (int kk = 0; kk < K; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::load_matrix_sync(a, A + kk, LDA);
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      // B^T as a column-major K x N operand: element (kk', n) lives at
+      // B[(j*16 + n) * LDB + kk + kk'].
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+      wmma::load_matrix_sync(b, B + j * 16 * LDB + kk, LDB);
+      wmma::mma_sync(acc[j], a, b, acc[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j)
+    wmma::store_matrix_sync(C + j * 16, acc[j], LDC, wmma::mem_row_major);
+}
+
+template <int N, int K, int LDA, int LDB, int LDC>
+__device__ __forceinline__ void warp_mm_ab_acc(float* C, const bf16* A,
+                                               const bf16* B) {
+  using namespace nvcuda;
+  static_assert(N % 16 == 0 && K % 16 == 0, "WMMA tiles are 16x16x16");
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[N / 16];
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j)
+    wmma::load_matrix_sync(acc[j], C + j * 16, LDC, wmma::mem_row_major);
+#pragma unroll
+  for (int kk = 0; kk < K; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::load_matrix_sync(a, A + kk, LDA);
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(b, B + kk * LDB + j * 16, LDB);
+      wmma::mma_sync(acc[j], a, b, acc[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j)
+    wmma::store_matrix_sync(C + j * 16, acc[j], LDC, wmma::mem_row_major);
+}
+
+// Number of streamed k tiles a causal q tile [q0, q0 + BM) can see: the
+// reference's _causal_num_k (flash_attention.py:61-67) at this kernel's tile
+// sizes. Tiles entirely in the future are never loaded.
+__device__ __forceinline__ int causal_num_k(float q_off, float k_off, int q0,
+                                            int bn, int num_k) {
+  const float max_q_pos = q_off + (float)(q0 + BM - 1);
+  const float eff = floorf((max_q_pos - k_off) / (float)bn) + 1.f;
+  return (int)fminf(fmaxf(eff, 0.f), (float)num_k);
+}
+
+// Raise a kernel's dynamic shared-memory cap to what its launch asks for.
+template <typename Kernel>
+__host__ cudaError_t prepare(Kernel kernel, int smem_bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes);
+}
+
+}  // namespace hvdflash
+
+// Dispatch on (dtype, head_dim): dtype 0 = fp32, 1 = bf16.
+#define HVD_FLASH_DISPATCH(dtype, head_dim, FN, ...)                      \
+  do {                                                                    \
+    if ((dtype) == 0 && (head_dim) == 32) return FN<float, 32>(__VA_ARGS__); \
+    if ((dtype) == 0 && (head_dim) == 64) return FN<float, 64>(__VA_ARGS__); \
+    if ((dtype) == 0 && (head_dim) == 128)                                \
+      return FN<float, 128>(__VA_ARGS__);                                 \
+    if ((dtype) == 1 && (head_dim) == 32)                                 \
+      return FN<hvdflash::bf16, 32>(__VA_ARGS__);                         \
+    if ((dtype) == 1 && (head_dim) == 64)                                 \
+      return FN<hvdflash::bf16, 64>(__VA_ARGS__);                         \
+    if ((dtype) == 1 && (head_dim) == 128)                                \
+      return FN<hvdflash::bf16, 128>(__VA_ARGS__);                        \
+    return (int)cudaErrorInvalidValue;                                    \
+  } while (0)
