@@ -8,26 +8,34 @@ toolkit:
 
 Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 
-1. device  - card name and power limit (nvidia-smi);
-2. build   - nvcc builds the three flash-attention kernels from
-             horovod_tpu_torch/ops/csrc, both sources at once;
-3. kernels - each CUDA kernel against its plain PyTorch version on the same
-             card tensors: the GPT-2-small shape (bf16, causal and not) and
-             small fp32/bf16 shapes with offsets, a fully-future block,
-             Tq != Tk, a ragged length, and return_lse with a dlse cotangent;
-             then flash_attention's autograd on the card (offsets, dlse)
-             against float64 attention;
-4. parity  - a small fp32 GptDecoder at T=1024 on the card, flash
-             kernels against dense attention with the same weights:
-             logits and gradients;
-5. timing  - each kernel, its plain version and torch's
-             scaled_dot_product_attention (yardstick only; the port never
-             calls it) at the GPT-2-small shape, beside the bound;
-6. train   - the main path: init() on NCCL, GptSmall (bf16 compute, fp32
-             params) at seq 1024 and batch 8, make_train_step with AdamW and
-             bf16 gradient compression, 5 steps on one fixed batch; the loss
-             must be finite and fall, and each kernel must have launched 12
-             times per step.
+1. device    - card name and power limit (nvidia-smi);
+2. build     - nvcc builds the three flash-attention kernels from
+               horovod_tpu_torch/ops/csrc, both sources at once;
+3. resources - registers, spills, shared memory and blocks per SM of every
+               kernel as the card reports them; the bf16 TMA/wgmma kernels
+               must not spill;
+4. kernels   - each CUDA kernel against its plain PyTorch version on the
+               same card tensors: the GPT-2-small shape (bf16, causal and
+               not) and small fp32/bf16 shapes with offsets, a fully-future
+               block, Tq != Tk, ragged lengths, a single tile, rows with no
+               visible key under 512-row reference tiles, and return_lse
+               with a dlse cotangent, o compared on every row; then
+               flash_attention's autograd on the card (offsets, dlse)
+               against float64 attention;
+5. parity    - a small fp32 GptDecoder at T=1024 on the card, flash
+               kernels against dense attention with the same weights:
+               logits and gradients;
+6. timing    - each kernel, its plain version and torch's
+               scaled_dot_product_attention forward and backward (yardstick
+               only; the port never calls it) at the GPT-2-small shape,
+               beside the bound, each the median of 5 turns;
+7. crossover - dense against flash attention, forward plus backward, over
+               the key length (the routing threshold DEFAULT_FLASH_MIN_SEQ);
+8. train     - the main path: init() on NCCL, GptSmall (bf16 compute, fp32
+               params) at seq 1024 and batch 8, make_train_step with AdamW
+               and bf16 gradient compression, 5 steps on one fixed batch;
+               the loss must be finite and fall, and each kernel must have
+               launched 12 times per step.
 
 Then the kernels line, the nvidia-smi line, and the final
 ``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes the nvcc
@@ -41,6 +49,7 @@ import argparse
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -120,6 +129,29 @@ def tolerances(dtype):
                 lse=(1e-4, 2e-3, 0.0, None))
 
 
+NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def kernel_resources():
+    """Registers, spill bytes, shared memory and resident blocks per SM of
+    every kernel instantiation, as the card reports them. The TMA/wgmma
+    kernels (bf16 forward and dk/dv) must not spill: their accumulators
+    are meant to live in registers."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    out = {}
+    for name in NAMES:
+        for dt in (torch.float32, torch.bfloat16):
+            for d in (32, 64, 128):
+                info = fa.kernel_info(name, dt, d)
+                key = f"{name}/{str(dt)[6:]}/d{d}"
+                out[key] = info
+                if dt == torch.bfloat16 and name != "flash_bwd_dq" and \
+                        info["local_bytes"]:
+                    raise AssertionError(f"{key} spills: {info}")
+    return out
+
+
 def kernel_inputs(case, device):
     import torch
     g = torch.Generator().manual_seed(case.get("seed", 0))
@@ -152,13 +184,12 @@ def check_case(case, device):
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, corr, *args)
     torch.cuda.synchronize()
     name = case["name"]
-    live = lse_p > fa.NEG_INF / 2  # o of fully masked rows is tile-dependent
-    o_live = live.transpose(1, 2)[..., None]
+    live = lse_p > fa.NEG_INF / 2
+    # every row, rows with no visible key included: their o is the mean of
+    # v over the keys of the reference's tiles, which the kernel follows
     pairs = {  # output -> (kernel, got, want, tolerance kind)
-        "o": ("flash_fwd", torch.where(o_live, o.float(), 0.0),
-              torch.where(o_live, o_p.float(), 0.0), "fwd"),
-        "lse": ("flash_fwd", torch.where(live, lse, 0.0),
-                torch.where(live, lse_p, 0.0), "lse"),
+        "o": ("flash_fwd", o, o_p, "fwd"),
+        "lse": ("flash_fwd", lse, lse_p, "lse"),
         "dq": ("flash_bwd_dq", dq, dq_p, "grad"),
         "dk": ("flash_bwd_dkv", dk, dk_p, "grad"),
         "dv": ("flash_bwd_dkv", dv, dv_p, "grad"),
@@ -207,6 +238,24 @@ def kernel_cases():
         dict(name="bf16_d32_offsets", b=2, tq=128, tk=256, h=2, d=32,
              bq=128, bk=128, causal=True, q_off=128.0, dtype=bf16,
              dlse=True, seed=9),
+        # edges of the TMA/wgmma bf16 kernels: one tile (the ring never
+        # fills), a ragged length (TMA zero fill), Tq != Tk with offsets
+        # at d=128 (two 64-column panels)
+        dict(name="bf16_d64_single_tile_64", b=2, tq=64, tk=64, h=2, d=64,
+             bq=64, bk=64, causal=True, dtype=bf16, seed=10),
+        dict(name="bf16_d64_ragged_200", b=2, tq=200, tk=200, h=3, d=64,
+             bq=200, bk=200, causal=True, dtype=bf16, seed=11),
+        dict(name="bf16_d128_offsets_tq_ne_tk", b=2, tq=128, tk=256, h=2,
+             d=128, bq=128, bk=128, causal=True, q_off=128.0, k_off=0.0,
+             dtype=bf16, dlse=True, seed=12),
+        # rows with no visible key under the reference's 512-row tiling:
+        # o is the mean of v over the first 512 keys (ROADMAP C1)
+        dict(name="f32_d64_dead_rows_512", b=1, tq=1024, tk=1024, h=2,
+             d=64, bq=512, bk=512, causal=True, q_off=-10.0, dtype=f32,
+             seed=13),
+        dict(name="bf16_d64_dead_rows_512", b=1, tq=1024, tk=1024, h=2,
+             d=64, bq=512, bk=512, causal=True, q_off=-10.0, dtype=bf16,
+             seed=14),
     ]
 
 
@@ -291,7 +340,13 @@ def bounds(b, t, h, d, causal, dtype_name):
     return out
 
 
+TURNS = 5  # every reported time is the median of this many turns
+
+
 def timing(device):
+    """Each kernel, its plain version and the SDPA yardstick at the main
+    shape. Kernel and plain version alternate turn by turn; each time is
+    the median of TURNS turns (a kernel turn is 50 launches)."""
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -315,38 +370,79 @@ def timing(device):
     }
     res = {}
     for name, (kern, plain) in runs.items():
-        # plain, kernel, kernel, plain: each reported time is the mean of
-        # its two turns
-        p1 = time_ms(plain, 3, warmup=1)
-        k1 = time_ms(kern, 50)
-        k2 = time_ms(kern, 50)
-        p2 = time_ms(plain, 3, warmup=1)
-        res[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                     "ms_turns": [k1, k2], "plain_ms_turns": [p1, p2]}
-    # yardstick: one library call on the same inputs in SDPA's [B, H, T, D]
+        kt, pt = [], []
+        for _ in range(TURNS):
+            pt.append(time_ms(plain, 3, warmup=1))
+            kt.append(time_ms(kern, 50))
+        res[name] = {"ms": statistics.median(kt),
+                     "plain_ms": statistics.median(pt),
+                     "ms_turns": kt, "plain_ms_turns": pt}
+    # yardstick: one library call on the same inputs in SDPA's [B, H, T, D];
+    # its backward alone is autograd.grad on a retained graph
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True), 50)
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
-
-    def fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        torch.autograd.grad(out, (qg, kg, vg), doh)
-    sdpa_fwd_bwd = time_ms(fwd_bwd, 30)
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    fwd_t, bwd_t = [], []
+    for _ in range(TURNS):
+        fwd_t.append(time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), 50))
+        bwd_t.append(time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), doh, retain_graph=True), 50))
+    sdpa_fwd, sdpa_bwd = statistics.median(fwd_t), statistics.median(bwd_t)
     # no single library call computes dq or dk/dv alone: SDPA's whole
-    # backward (its forward and backward, less its forward) is the joint
-    # yardstick of the two backward kernels together
+    # backward is the joint yardstick of the two backward kernels together
     res["flash_fwd"].update(library_ms=sdpa_fwd, library_ms_joint=None)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        res[name].update(library_ms=None,
-                         library_ms_joint=sdpa_fwd_bwd - sdpa_fwd)
+        res[name].update(library_ms=None, library_ms_joint=sdpa_bwd)
     bnd = bounds(MAIN["b"], MAIN["t"], MAIN["h"], MAIN["d"], True,
                  "bfloat16")
     for name, (ms, by, nbytes, flops) in bnd.items():
         res[name].update(bound_ms=ms, bound_by=by, bytes=nbytes,
-                         flops=flops)
-    return res, {"sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd,
-                 "sdpa_bwd_ms": sdpa_fwd_bwd - sdpa_fwd}
+                         flops=flops, share_of_bound=ms / res[name]["ms"])
+    return res, {"sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
+                 "sdpa_fwd_ms_turns": fwd_t, "sdpa_bwd_ms_turns": bwd_t}
+
+
+CROSSOVER_T = (256, 512, 1024, 2048)
+
+
+def crossover(device):
+    """Dense attention against the flash kernels, forward plus backward
+    through the public functions, at the main shape's B, H, D (bf16,
+    causal) over the key length: the routing crossover of
+    ``attention`` (DEFAULT_FLASH_MIN_SEQ). Returns the times and the
+    shortest swept length from which flash is no slower at every longer
+    swept length (None if dense wins at the longest)."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    rows = []
+    for t in CROSSOVER_T:
+        case = dict(b=MAIN["b"], tq=t, tk=t, h=MAIN["h"], d=MAIN["d"],
+                    dtype=torch.bfloat16, seed=t)
+        q, k, v, do, _ = kernel_inputs(case, device)
+        ts = [x.requires_grad_(True) for x in (q, k, v)]
+
+        def fwd_bwd(fn):
+            out = fn(*ts, causal=True)
+            torch.autograd.grad(out, ts, do)
+        dense_t, flash_t = [], []
+        for _ in range(TURNS):
+            dense_t.append(time_ms(lambda: fwd_bwd(fa.dense_attention), 10))
+            flash_t.append(time_ms(lambda: fwd_bwd(fa.flash_attention), 10))
+        rows.append({"tk": t, "dense_ms": statistics.median(dense_t),
+                     "flash_ms": statistics.median(flash_t),
+                     "dense_ms_turns": dense_t, "flash_ms_turns": flash_t})
+        del q, k, v, do, ts
+        torch.cuda.empty_cache()
+    cross = None
+    for row in reversed(rows):
+        if row["flash_ms"] > row["dense_ms"]:
+            break
+        cross = row["tk"]
+    return {"phase": "crossover", "b": MAIN["b"], "h": MAIN["h"],
+            "d": MAIN["d"], "dtype": "bfloat16", "causal": True,
+            "rows": rows, "flash_no_slower_from_tk": cross,
+            "default_flash_min_seq": fa.DEFAULT_FLASH_MIN_SEQ}
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +603,8 @@ def main() -> int:
                 f.write(log)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_library_s": per_lib, "ptxas": ptxas})
+    resources = kernel_resources()
+    emit({"phase": "resources", "kernels": resources})
 
     max_err = {}
     for case in kernel_cases():
@@ -524,6 +622,7 @@ def main() -> int:
     times, sdpa = timing(device)
     emit({"phase": "timing", "shape": MAIN, "dtype": "bfloat16",
           "causal": True, "kernels": times, **sdpa})
+    emit(crossover(device))
 
     counts, prof, train_line = train(device, opts.out, opts.profile)
     emit(train_line)
@@ -531,16 +630,19 @@ def main() -> int:
         emit(prof)
 
     kernels = []
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in NAMES:
         src, replaces = REPLACES[name]
         t = times[name]
+        res = resources[f"{name}/bfloat16/d{MAIN['d']}"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "library_ms_joint": t["library_ms_joint"]})
+            "library_ms_joint": t["library_ms_joint"],
+            "registers": res["registers"], "smem_bytes": res["smem_bytes"],
+            "blocks_per_sm": res["blocks_per_sm"]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "horovod_tpu_torch"
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "flash_sm90.cuh")
 # library name -> its one source file
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -34,12 +34,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p, every C function returns its cudaError_t as an int.
 SIGNATURES = {
     "hvd_flash_fwd": ("flash_fwd", [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _F, _F, _F, _P]),
+                                    _I, _I, _F, _F, _F, _I, _I, _P]),
     "hvd_flash_bwd_dq": ("flash_bwd", [_I, _I, _P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _F, _F, _F, _P]),
     "hvd_flash_bwd_dkv": ("flash_bwd", [_I, _I, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _I, _I, _I, _I, _I, _F, _F, _F,
                                         _P]),
+    # kernel attributes: (dtype, head_dim[, which], int[4] out)
+    "hvd_flash_fwd_info": ("flash_fwd", [_I, _I, _P]),
+    "hvd_flash_bwd_info": ("flash_bwd", [_I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -17,14 +17,31 @@
 // D=64, bf16, causal) dq needs ~19 GFLOP against ~64 MB, and dk/dv ~26
 // GFLOP against ~76 MB, intensities of ~300 and ~340 FLOP/byte, right at or
 // above the ~295 bf16 ridge: the tensor cores bound them, with memory close
-// behind. Design: the block's own tile (q/do, or k/v) is loaded once and
-// kept in shared memory, the other side is streamed through shared memory
-// one BN-row tile at a time (never whole rows, which an SM cannot hold),
-// products run on the tensor cores (WMMA bf16, fp32 accumulate) and the
-// fp32 accumulators stay in shared memory. The causal tile skipping of the
-// reference is kept in both kernels. Like the forward, this first version
-// has no copy/compute overlap (TMA + wgmma later, ROADMAP queue B).
+// behind. The causal tile skipping of the reference is kept in both.
+//
+// dk/dv, bf16 (flash_bwd_dkv_sm90): one warpgroup owns 64 k rows. K and V
+// arrive once by TMA and stay in shared memory; Q/dO tiles (64 rows, 32 at
+// D=128) stream through a two-stage TMA ring guarded by mbarriers, their
+// lse/corr slices through the same two stages by plain loads one tile ahead.
+// Per q tile, S^T = K.Q^T and dP^T = V.dO^T run on wgmma into registers;
+// p and ds are formed on the accumulator fragments (exp2 with scale and
+// log2(e) in one FMA) and cast to bf16 in place, which makes them the
+// register A operands of dV += P^T.dO and dK += dS^T.Q (dO and Q read
+// MN-major through the transpose bit). dK and dV accumulate in registers
+// over the whole q loop and reach device memory once. Shared memory: 50 KB
+// at D=64, against 125 KB for the WMMA version it replaces (one block per
+// SM then, three now, bound by 162 registers a thread).
+//
+// dq, both types, and dk/dv, fp32 (the first, simple design): the block's
+// own tile is loaded once and kept in shared memory, the other side is
+// streamed through shared memory one BN-row tile at a time, products run
+// on WMMA (bf16) or scalar fp32 FMA (fp32, no TF32) and the fp32
+// accumulators stay in shared memory; no copy/compute overlap. dq's
+// redesign is next (ROADMAP queue B).
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace hvdflash {
 
@@ -120,8 +137,11 @@ __global__ void __launch_bounds__(THREADS)
   store_rows<T, D, Sm::LDO>(dq + q_base, sDQ, q0, Tq, rs, nullptr);
 }
 
-template <typename T, int D>
+// ---- dk/dv, fp32: scalar kernel ------------------------------------------
+
+template <int D>
 struct DkvSmem {
+  using T = float;
   static constexpr int BN = Cfg<T>::BN;
   static constexpr int LDE = D + Cfg<T>::PAD;
   static constexpr int LDS = BN + 4;
@@ -143,15 +163,27 @@ struct DkvSmem {
   static constexpr int BYTES = DV + align128(BM * LDO * 4);
 };
 
-template <typename T, int D>
+// First q tile (of bn rows) whose last position reaches k row k0: the
+// reference's causal start of the dk/dv loop at this kernel's tile size.
+__device__ __forceinline__ int dkv_start(float q_off, float k_off, int k0,
+                                         int bn, int num_q) {
+  const float s0 = floorf((k_off + (float)k0 - q_off) / (float)bn);
+  return (int)fminf(fmaxf(s0, 0.f), (float)num_q);
+}
+
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ corr, T* __restrict__ dk,
-                         T* __restrict__ dv, int H, int Tq, int Tk,
-                         int causal, float scale, float q_off, float k_off) {
-  using Sm = DkvSmem<T, D>;
+                         const float* __restrict__ corr,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int H, int Tq, int Tk, int causal, float scale,
+                         float q_off, float k_off) {
+  using T = float;
+  using Sm = DkvSmem<D>;
   constexpr int BN = Sm::BN;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem + Sm::K);
@@ -194,12 +226,7 @@ __global__ void __launch_bounds__(THREADS)
   float* wDV = sDV + warp * WROWS * Sm::LDO;
 
   const int num_q = (Tq + BN - 1) / BN;
-  int start = 0;
-  if (causal) {
-    // first q tile whose last position reaches this k tile's first one
-    const float s0 = floorf((k_off + (float)k0 - q_off) / (float)BN);
-    start = (int)fminf(fmaxf(s0, 0.f), (float)num_q);
-  }
+  const int start = causal ? dkv_start(q_off, k_off, k0, BN, num_q) : 0;
   const float* lse_bh = lse + (size_t)bh * Tq;
   const float* corr_bh = corr + (size_t)bh * Tq;
 
@@ -225,9 +252,8 @@ __global__ void __launch_bounds__(THREADS)
       if (lse_c > NEG_INF / 2 &&
           !(causal && !(q_off + (float)(q0 + c) >= k_pos)))
         p = expf(wS[r * Sm::LDS + c] * scale - lse_c);
-      wP[r * Sm::LDP + c] = from_f<T>(p);  // p cast to do's dtype
-      wDS[r * Sm::LDP + c] =
-          from_f<T>(p * (wDP[r * Sm::LDS + c] + sCorr[c]) * scale);
+      wP[r * Sm::LDP + c] = p;
+      wDS[r * Sm::LDP + c] = p * (wDP[r * Sm::LDS + c] + sCorr[c]) * scale;
     }
     __syncwarp();
     warp_mm_ab_acc<D, BN, Sm::LDP, Sm::LDE, Sm::LDO>(wDV, wP, sDO);
@@ -236,6 +262,190 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
   store_rows<T, D, Sm::LDO>(dk + k_base, sDK, k0, Tk, rs, nullptr);
   store_rows<T, D, Sm::LDO>(dv + k_base, sDV, k0, Tk, rs, nullptr);
+}
+
+// ---- dk/dv, bf16: TMA + wgmma kernel ---------------------------------------
+
+template <int D>
+struct DkvSm90 {
+  // q rows per streamed tile: 32 at D=128 keeps dK and dV (2 x 64 fp32) and
+  // the two score tiles within one thread's registers
+  static constexpr int BN = D == 128 ? 32 : 64;
+  static constexpr int KT = BM * D * 2;      // bytes of the K (or V) tile
+  static constexpr int QT = BN * D * 2;      // bytes of a Q (or dO) tile
+  static constexpr int STAGES = 2;
+  static constexpr int K = 0;
+  static constexpr int V = K + KT;
+  static constexpr int RING = V + KT;        // stage s: Q at RING + 2 s QT,
+                                             // dO one QT further
+  static constexpr int ROWS = RING + STAGES * 2 * QT;  // lse, corr per stage
+  static constexpr int BAR = ROWS + STAGES * 2 * BN * 4;  // kv, then stages
+  static constexpr int BYTES = BAR + 8 * (1 + STAGES) + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(sm90::WG)
+    flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ corr, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int H, int Tq, int Tk,
+                       int causal, float scale, float q_off, float k_off) {
+  using namespace sm90;
+  using L = DkvSm90<D>;
+  constexpr int BN = L::BN;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  float* sRows = reinterpret_cast<float*>(smem + L::ROWS);  // [stage][2][BN]
+  const uint32_t sK = smem_u32(smem + L::K), sV = smem_u32(smem + L::V);
+
+  // heads on the fast grid axis, k tiles first to last on the slow one:
+  // under causal masking the first k tiles see the most q tiles, so the
+  // longest blocks start first and the tail is short
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // this thread's k rows (r and r + 8 of its warp's 16) and q column pair
+  const int r0 = warp * 16 + (lane >> 2), c2 = (lane & 3) * 2;
+  const float k_pos[2] = {k_off + (float)(k0 + r0),
+                          k_off + (float)(k0 + r0 + 8)};
+
+  const int num_q = (Tq + BN - 1) / BN;
+  const int start = causal ? dkv_start(q_off, k_off, k0, BN, num_q) : 0;
+  const int n = num_q - start;
+  const float* lse_bh = lse + (size_t)bh * Tq;
+  const float* corr_bh = corr + (size_t)bh * Tq;
+
+  // lse and corr of q tile qt into stage s, by the first BN threads; rows
+  // past Tq are dead. (Plain loads: a TMA copy of a [B*H, Tq] fp32 row
+  // needs 16-byte row strides, which a ragged Tq does not give.)
+  auto load_rows_of = [&](int qt, int s) {
+    if (tid < BN) {
+      const int t = qt * BN + tid;
+      float* dst = sRows + s * 2 * BN;
+      dst[tid] = t < Tq ? lse_bh[t] : NEG_INF;
+      dst[BN + tid] = t < Tq ? corr_bh[t] : 0.f;
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + L::STAGES; ++i) mbar_init(&bar[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(&bar[0], 2 * L::KT);
+    tma_tile<D, BM>(smem + L::K, &map_k, &bar[0], h, k0, b);
+    tma_tile<D, BM>(smem + L::V, &map_v, &bar[0], h, k0, b);
+    if (n > 0) {
+      mbar_expect(&bar[1], 2 * L::QT);
+      tma_tile<D, BN>(smem + L::RING, &map_q, &bar[1], h, start * BN, b);
+      tma_tile<D, BN>(smem + L::RING + L::QT, &map_do, &bar[1], h,
+                      start * BN, b);
+    }
+  }
+  if (n > 0) load_rows_of(start, 0);
+  __syncthreads();
+
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+  mbar_wait(&bar[0], 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int s = it & 1, qt = start + it, q0 = qt * BN;
+    if (it + 1 < n) {
+      // the other stage was released by the __syncthreads ending tile it-1
+      if (tid == 0) {
+        unsigned char* nxt = smem + L::RING + (s ^ 1) * 2 * L::QT;
+        mbar_expect(&bar[1 + (s ^ 1)], 2 * L::QT);
+        tma_tile<D, BN>(nxt, &map_q, &bar[1 + (s ^ 1)], h, (qt + 1) * BN, b);
+        tma_tile<D, BN>(nxt + L::QT, &map_do, &bar[1 + (s ^ 1)], h,
+                        (qt + 1) * BN, b);
+      }
+      load_rows_of(qt + 1, s ^ 1);
+    }
+    mbar_wait(&bar[1 + s], (it >> 1) & 1);
+    const uint32_t sQ = smem_u32(smem + L::RING + s * 2 * L::QT);
+    const uint32_t sDO = sQ + L::QT;
+    const float* sLse = sRows + s * 2 * BN;
+    const float* sCorr = sLse + BN;
+
+    // transposed scores S^T = K . Q^T and dP^T = V . dO^T (rows k, cols q)
+    float acc_s[BN / 2], acc_dp[BN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(acc_s, desc_kmajor<D, BM>(sK, kk), desc_kmajor<D, BN>(sQ, kk),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(acc_dp, desc_kmajor<D, BM>(sV, kk),
+               desc_kmajor<D, BN>(sDO, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_s);
+    fence_regs(acc_dp);
+
+    // p = exp(s * scale - lse), zero on dead columns and masked pairs;
+    // ds = p * (dp + corr) * scale
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + c2 + (e & 1);
+        const float lse_c = sLse[c];
+        float p = 0.f;
+        if (lse_c > NEG_INF / 2 &&
+            !(causal && !(q_off + (float)(q0 + c) >= k_pos[e >> 1])))
+          p = exp2f(fmaf(acc_s[4 * j + e], scale_log2, -lse_c * LOG2E));
+        acc_dp[4 * j + e] = p * (acc_dp[4 * j + e] + sCorr[c]) * scale;
+        acc_s[4 * j + e] = p;
+      }
+
+    // dV += P^T . dO (p cast to do's dtype), dK += dS^T . Q (ds cast to q's)
+    uint32_t pf[BN / 16][4], dsf[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      to_a_frag(pf[kk], acc_s, kk);
+      to_a_frag(dsf[kk], acc_dp, kk);
+    }
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(acc_dv, pf[kk], desc_mnmajor<D, BN>(sDO, kk));
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(acc_dk, dsf[kk], desc_mnmajor<D, BN>(sQ, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    __syncthreads();  // stage s is read; stage s^1's lse/corr are visible
+  }
+
+  const size_t rs = (size_t)H * D;
+  const size_t k_base = ((size_t)b * Tk * H + h) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = k0 + r0 + 8 * i;
+    if (t >= Tk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t at = k_base + (size_t)t * rs + 8 * j + c2;
+      *reinterpret_cast<uint32_t*>(dk + at) =
+          pack_bf16(acc_dk[4 * j + 2 * i], acc_dk[4 * j + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at) =
+          pack_bf16(acc_dv[4 * j + 2 * i], acc_dv[4 * j + 2 * i + 1]);
+    }
+  }
 }
 
 template <typename T, int D>
@@ -262,20 +472,59 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int B, int H, int Tq, int Tk,
                        int causal, float scale, float q_off, float k_off,
                        cudaStream_t stream) {
-  constexpr int bytes = DkvSmem<T, D>::BYTES;
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<T, D>, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tk + BM - 1) / BM, B * H);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(corr),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk, causal, scale,
-      q_off, k_off);
+  if constexpr (std::is_same<T, float>::value) {
+    dim3 grid((Tk + BM - 1) / BM, B * H);
+    constexpr int bytes = DkvSmem<D>::BYTES;
+    cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, bytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<D><<<grid, THREADS, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(corr),
+        static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, causal,
+        scale, q_off, k_off);
+  } else {
+    using L = DkvSm90<D>;
+    constexpr int bytes = L::BYTES;
+    CUtensorMap mq, mk, mv, mdo;
+    cudaError_t err = sm90::make_map(&mq, q, B, Tq, H, D, L::BN);
+    if (err == cudaSuccess)
+      err = sm90::make_map(&mdo, dout, B, Tq, H, D, L::BN);
+    if (err == cudaSuccess) err = sm90::make_map(&mk, k, B, Tk, H, D, BM);
+    if (err == cudaSuccess) err = sm90::make_map(&mv, v, B, Tk, H, D, BM);
+    if (err == cudaSuccess) err = prepare(flash_bwd_dkv_sm90<D>, bytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid(B * H, (Tk + BM - 1) / BM);
+    flash_bwd_dkv_sm90<D><<<grid, sm90::WG, bytes, stream>>>(
+        mq, mk, mv, mdo, static_cast<const float*>(lse),
+        static_cast<const float*>(corr), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), H, Tq, Tk, causal, scale, q_off, k_off);
+  }
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+int info_bwd(int which, int* info) {
+  if (which == 0)
+    return kernel_info(flash_bwd_dq_kernel<T, D>, THREADS,
+                       DqSmem<T, D>::BYTES, info);
+  if constexpr (std::is_same<T, float>::value)
+    return kernel_info(flash_bwd_dkv_kernel<D>, THREADS, DkvSmem<D>::BYTES,
+                       info);
+  else
+    return kernel_info(flash_bwd_dkv_sm90<D>, sm90::WG, DkvSm90<D>::BYTES,
+                       info);
+}
+
 }  // namespace hvdflash
+
+// Registers, spill bytes, shared memory and blocks per SM of the dq
+// (which = 0) or dk/dv (which = 1) kernel; see hvdflash::kernel_info.
+extern "C" int hvd_flash_bwd_info(int which, int dtype, int head_dim,
+                                  int* info) {
+  using hvdflash::info_bwd;
+  HVD_FLASH_DISPATCH(dtype, head_dim, info_bwd, which, info);
+}
 
 extern "C" int hvd_flash_bwd_dq(int dtype, int head_dim, const void* q,
                                 const void* k, const void* v,

@@ -7,9 +7,10 @@
 // through shared memory in tiles of BN rows. Each warp owns 16 of the 64
 // rows, so the softmax bookkeeping of a row never leaves its warp.
 //
-// Types: bf16 takes the tensor cores through WMMA m16n16k16 with fp32
-// accumulation; fp32 stays full fp32 (scalar FMA, no TF32), which is what the
-// reference's fp32 tolerances need.
+// Types: fp32 stays full fp32 (scalar FMA, no TF32), which is what the
+// reference's fp32 tolerances need. bf16 takes the tensor cores: the dq
+// kernel through WMMA m16n16k16 with fp32 accumulation (the helpers below),
+// the forward and dk/dv kernels through TMA and wgmma (flash_sm90.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -212,12 +213,62 @@ __device__ __forceinline__ int causal_num_k(float q_off, float k_off, int q0,
   return (int)fminf(fmaxf(eff, 0.f), (float)num_k);
 }
 
+// End (exclusive) of the keys that q row `row` weighs under causal masking
+// when the reference tiles by block_q x block_k: block_k times the
+// reference's _causal_num_k for the row's q block. It decides only rows
+// with no visible key, whose o is the mean of v over these keys. block_k
+// <= 0 stands for no reference tiling: every key up to Tk counts.
+__device__ __forceinline__ int ref_kv_end(float q_off, float k_off, int row,
+                                          int block_q, int block_k, int Tk) {
+  if (block_k <= 0) return Tk;
+  const float max_q_pos = q_off + (float)((row / block_q + 1) * block_q - 1);
+  const float eff = floorf((max_q_pos - k_off) / (float)block_k) + 1.f;
+  const int tiles = (int)fminf(fmaxf(eff, 0.f), (float)(Tk / block_k));
+  return min(Tk, tiles * block_k);
+}
+
+// k tiles of bn rows a causal forward q tile [q0, q0 + BM) visits: its own
+// causal count, and further, to its last row's ref_kv_end, only when the
+// tile holds a row with no visible key (q_off + q0 < k_off).
+__device__ __forceinline__ int fwd_num_k(float q_off, float k_off, int q0,
+                                         int bn, int Tq, int Tk, int block_q,
+                                         int block_k) {
+  int n = causal_num_k(q_off, k_off, q0, bn, (Tk + bn - 1) / bn);
+  if (block_k > 0 && q_off + (float)q0 < k_off) {
+    const int last = min(q0 + BM, Tq) - 1;
+    const int end = ref_kv_end(q_off, k_off, last, block_q, block_k, Tk);
+    n = max(n, (end + bn - 1) / bn);
+  }
+  return n;
+}
+
 // Raise a kernel's dynamic shared-memory cap to what its launch asks for.
 template <typename Kernel>
 __host__ cudaError_t prepare(Kernel kernel, int smem_bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem_bytes);
+}
+
+// What the card makes of a kernel at its launch configuration: info[0]
+// registers per thread, info[1] local-memory (spill) bytes per thread,
+// info[2] dynamic shared memory per block, info[3] resident blocks per SM.
+template <typename Kernel>
+__host__ int kernel_info(Kernel kernel, int threads, int smem_bytes,
+                         int* info) {
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  cudaError_t err = prepare(kernel, smem_bytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = smem_bytes;
+  info[3] = blocks;
+  return 0;
 }
 
 }  // namespace hvdflash

@@ -14,9 +14,10 @@ Each wrapper launches its kernel for a CUDA tensor (or raises) and counts
 the launch in its ``launches`` attribute; for a CPU tensor it runs the
 kernel's plain PyTorch version, which follows the reference tile by tile,
 honouring ``block_q``/``block_k`` exactly. The CUDA kernels use their own
-tile sizes (64 rows, and 64 or 32 streamed rows) whatever the block
-arguments say; the two agree except on rows that see no key inside a
-visited tile (ROADMAP queue C).
+tile sizes (64 rows, and 32 or 64 streamed rows); the forward kernel also
+takes the block arguments, which decide o on causal rows that see no key
+(the mean of v over the keys the reference's tiles visit), so the two
+agree on every row.
 
 Layout: [batch, seq, heads, head_dim] in and out; lse is [batch, heads,
 Tq] fp32. ``q_offset``/``k_offset`` are global positions of element 0 for
@@ -35,9 +36,11 @@ from horovod_tpu_torch.common.env import env_int
 NEG_INF = -1e30  # large-negative instead of -inf: keeps exp() NaN-free
 
 # Routing crossover of :func:`attention`: key lengths below it take the
-# dense path. 1024 is the value measured on a TPU, kept for parity with the
-# reference; it is still to be re-measured on the H100 (ROADMAP).
-DEFAULT_FLASH_MIN_SEQ = 1024
+# dense path. Measured on an H100 (``chip_smoke.py`` phase crossover, bf16,
+# causal, B=8, H=12, D=64, forward plus backward): the flash kernels beat
+# dense attention at every swept length, 256 to 2048, so the threshold is
+# the shortest length swept. The reference keeps its TPU value, 1024.
+DEFAULT_FLASH_MIN_SEQ = 256
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -265,6 +268,19 @@ def _launch(symbol: str, name: str, device: torch.device, *args) -> None:
                            f"cudaError_t {rc}")
 
 
+def _reference_tiling(tq: int, tk: int, block_q: int, block_k: int
+                      ) -> Tuple[int, int]:
+    """The block sizes the forward kernel takes as the reference's tiling:
+    they decide o on causal rows with no visible key (the mean of v over
+    the keys the reference's q block visits). Blocks that do not tile the
+    sequences describe no reference tiling and pass as (0, 0): every key
+    up to Tk then counts."""
+    if 0 < block_q and 0 < block_k and tq % block_q == 0 and \
+            tk % block_k == 0:
+        return block_q, block_k
+    return 0, 0
+
+
 def _require_cuda(name: str, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {x.device} are not supported "
@@ -286,9 +302,10 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float, q_off: float = 0.0,
     tk = k.shape[1]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    bq, bk = _reference_tiling(tq, tk, block_q, block_k)
     _launch("hvd_flash_fwd", "flash_fwd", q.device, code, d, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h,
-            tq, tk, int(causal), sm_scale, q_off, k_off)
+            tq, tk, int(causal), sm_scale, q_off, k_off, bq, bk)
     flash_fwd.launches += 1
     return o, lse
 
@@ -351,6 +368,31 @@ def launch_counts() -> dict:
     return {kern.__name__: kern.launches for kern in KERNELS}
 
 
+def kernel_info(name: str, dtype: torch.dtype, head_dim: int) -> dict:
+    """Registers and local-memory (spill) bytes per thread, dynamic shared
+    memory per block and resident blocks per SM of one CUDA kernel
+    (``name`` as in :data:`KERNELS`), as the card reports them."""
+    import ctypes
+    from horovod_tpu_torch.ops import _build
+    if dtype not in _KERNEL_DTYPES or head_dim not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"no CUDA kernel for {dtype}, head_dim {head_dim}")
+    info = (ctypes.c_int * 4)()
+    code = _KERNEL_DTYPES[dtype]
+    if name == "flash_fwd":
+        rc = _build.function("hvd_flash_fwd_info")(code, head_dim, info)
+    elif name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        which = int(name == "flash_bwd_dkv")
+        rc = _build.function("hvd_flash_bwd_info")(which, code, head_dim,
+                                                   info)
+    else:
+        raise ValueError(f"unknown kernel {name!r}")
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel attributes failed with "
+                           f"cudaError_t {rc}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), info))
+
+
 # ---------------------------------------------------------------------------
 # Autograd and the public surface
 
@@ -403,7 +445,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: [B, Tq, H, D]; k/v: [B, Tk, H, D(v)]. Block sizes shrink to divisors
     of the sequence lengths (they steer the plain version; the CUDA kernels
-    tile on their own). ``q_offset``/``k_offset`` are global positions of
+    tile on their own and take them only for o on rows with no visible
+    key). ``q_offset``/``k_offset`` are global positions of
     element 0 for causal masking of sequence-sharded blocks.
     ``return_lse=True`` also returns the per-row log-sum-exp [B, H, Tq]
     fp32; both outputs are differentiable.
