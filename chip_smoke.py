@@ -17,9 +17,10 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 4. kernels   - each CUDA kernel against its plain PyTorch version on the
                same card tensors: the GPT-2-small shape (bf16, causal and
                not) and small fp32/bf16 shapes with offsets, a fully-future
-               block, Tq != Tk, ragged lengths, a single tile, rows with no
-               visible key under 512-row reference tiles, and return_lse
-               with a dlse cotangent, o compared on every row; then
+               block, Tq != Tk, ragged lengths, a single tile, one q tile
+               against 1024 keys, rows with no visible key under 512-row
+               reference tiles, and return_lse with a dlse cotangent, o
+               compared on every row; then
                flash_attention's autograd on the card (offsets, dlse)
                against float64 attention;
 5. parity    - a small fp32 GptDecoder at T=1024 on the card, flash
@@ -134,9 +135,9 @@ NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 def kernel_resources():
     """Registers, spill bytes, shared memory and resident blocks per SM of
-    every kernel instantiation, as the card reports them. The TMA/wgmma
-    kernels (bf16 forward and dk/dv) must not spill: their accumulators
-    are meant to live in registers."""
+    every kernel instantiation, as the card reports them. The bf16
+    TMA/wgmma kernels (forward, dq and dk/dv) must not spill: their
+    accumulators are meant to live in registers."""
     import torch
     from horovod_tpu_torch.ops import flash_attention as fa
     out = {}
@@ -146,8 +147,7 @@ def kernel_resources():
                 info = fa.kernel_info(name, dt, d)
                 key = f"{name}/{str(dt)[6:]}/d{d}"
                 out[key] = info
-                if dt == torch.bfloat16 and name != "flash_bwd_dq" and \
-                        info["local_bytes"]:
+                if dt == torch.bfloat16 and info["local_bytes"]:
                     raise AssertionError(f"{key} spills: {info}")
     return out
 
@@ -248,6 +248,16 @@ def kernel_cases():
         dict(name="bf16_d128_offsets_tq_ne_tk", b=2, tq=128, tk=256, h=2,
              d=128, bq=128, bk=128, causal=True, q_off=128.0, k_off=0.0,
              dtype=bf16, dlse=True, seed=12),
+        # a ragged key side without a causal mask: keys past Tk arrive as
+        # TMA zeros and must weigh nothing
+        dict(name="bf16_d32_ragged_65_100_full", b=2, tq=65, tk=100, h=2,
+             d=32, bq=65, bk=100, causal=False, dtype=bf16, dlse=True,
+             seed=16),
+        # one q tile against a long key side: the dq kernel's K/V ring
+        # wraps 16 times within one block
+        dict(name="bf16_d64_one_q_tile_long_k", b=2, tq=64, tk=1024, h=2,
+             d=64, bq=64, bk=1024, causal=False, dtype=bf16, dlse=True,
+             seed=15),
         # rows with no visible key under the reference's 512-row tiling:
         # o is the mean of v over the first 512 keys (ROADMAP C1)
         dict(name="f32_d64_dead_rows_512", b=1, tq=1024, tk=1024, h=2,

@@ -14,10 +14,26 @@
 // scheduling order.
 //
 // What bounds them on an H100: at the GPT-2-small shape (B=8, T=1024, H=12,
-// D=64, bf16, causal) dq needs ~19 GFLOP against ~64 MB, and dk/dv ~26
-// GFLOP against ~76 MB, intensities of ~300 and ~340 FLOP/byte, right at or
-// above the ~295 bf16 ridge: the tensor cores bound them, with memory close
-// behind. The causal tile skipping of the reference is kept in both.
+// D=64, bf16, causal) dq needs ~19.3 GFLOP (three products over the causally
+// visible pairs) against ~64 MB (q, k, v, do, lse, corr read once, dq
+// written once), and dk/dv ~26 GFLOP against ~76 MB, intensities of ~300 and
+// ~340 FLOP/byte, right at or above the ~295 bf16 ridge: the tensor cores
+// bound them, with memory close behind. The causal tile skipping of the
+// reference is kept in both.
+//
+// dq, bf16 (flash_bwd_dq_sm90): one warpgroup owns 64 q rows. Q and dO
+// arrive once by TMA on one mbarrier and stay in shared memory; each thread
+// reads its two rows' lse and corr once, into registers. K/V tiles of 64
+// rows stream through a two-stage TMA ring, tile k+1 loading while tile k
+// computes. Per k tile, S = Q.K^T and dP = dO.V^T run on wgmma into
+// registers; ds is formed on the accumulator fragments (exp2 with scale and
+// log2(e) in one FMA) and cast to bf16 in place as the register A operand
+// of dQ += dS.K (K read MN-major through the transpose bit). dQ stays in
+// registers over the whole k loop and reaches device memory once, as bf16.
+// Shared memory: 48 KB of tiles at D=64, plus barriers and 1 KB of
+// alignment; 122 registers a thread with no spill, so four blocks fit an
+// SM, bound by registers. At D=128 the 64-row K/V tiles still fit: S, dP
+// and dQ take 128 fp32 a thread, 157 registers, two blocks per SM.
 //
 // dk/dv, bf16 (flash_bwd_dkv_sm90): one warpgroup owns 64 k rows. K and V
 // arrive once by TMA and stay in shared memory; Q/dO tiles (64 rows, 32 at
@@ -32,12 +48,10 @@
 // at D=64, against 125 KB for the WMMA version it replaces (one block per
 // SM then, three now, bound by 162 registers a thread).
 //
-// dq, both types, and dk/dv, fp32 (the first, simple design): the block's
-// own tile is loaded once and kept in shared memory, the other side is
-// streamed through shared memory one BN-row tile at a time, products run
-// on WMMA (bf16) or scalar fp32 FMA (fp32, no TF32) and the fp32
-// accumulators stay in shared memory; no copy/compute overlap. dq's
-// redesign is next (ROADMAP queue B).
+// fp32, dq and dk/dv (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): the
+// block's own tile is loaded once and kept in shared memory, the other side
+// is streamed through shared memory one 32-row tile at a time, products run
+// on scalar fp32 FMA (no TF32) and the accumulators stay in shared memory.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -45,12 +59,15 @@
 
 namespace hvdflash {
 
-template <typename T, int D>
+// ---- dq, fp32: scalar kernel -----------------------------------------------
+
+template <int D>
 struct DqSmem {
-  static constexpr int BN = Cfg<T>::BN;
-  static constexpr int LDE = D + Cfg<T>::PAD;
+  using T = float;
+  static constexpr int BN = F32_BN;
+  static constexpr int LDE = D + F32_PAD;
   static constexpr int LDS = BN + 4;
-  static constexpr int LDP = BN + Cfg<T>::PAD;
+  static constexpr int LDP = BN + F32_PAD;
   static constexpr int LDO = D + 4;
   static constexpr int ES = (int)sizeof(T);
   static constexpr int Q = 0;
@@ -64,15 +81,18 @@ struct DqSmem {
   static constexpr int BYTES = DQ + align128(BM * LDO * 4);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ corr, T* __restrict__ dq,
-                        int H, int Tq, int Tk, int causal, float scale,
-                        float q_off, float k_off) {
-  using Sm = DqSmem<T, D>;
+                        const float* __restrict__ corr,
+                        float* __restrict__ dq, int H, int Tq, int Tk,
+                        int causal, float scale, float q_off, float k_off) {
+  using T = float;
+  using Sm = DqSmem<D>;
   constexpr int BN = Sm::BN;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + Sm::Q);
@@ -91,8 +111,8 @@ __global__ void __launch_bounds__(THREADS)
   const size_t q_base = ((size_t)b * Tq * H + h) * D;
   const size_t k_base = ((size_t)b * Tk * H + h) * D;
 
-  load_rows<T, BM, D, Sm::LDE>(sQ, q + q_base, q0, Tq, rs);
-  load_rows<T, BM, D, Sm::LDE>(sDO, dout + q_base, q0, Tq, rs);
+  load_rows<BM, D, Sm::LDE>(sQ, q + q_base, q0, Tq, rs);
+  load_rows<BM, D, Sm::LDE>(sDO, dout + q_base, q0, Tq, rs);
   for (int i = threadIdx.x; i < BM * Sm::LDO; i += THREADS) sDQ[i] = 0.f;
 
   const int r = lane >> 1, half = lane & 1;
@@ -115,8 +135,8 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int kt = 0; kt < num_k; ++kt) {
     const int k0 = kt * BN;
-    load_rows<T, BN, D, Sm::LDE>(sK, k + k_base, k0, Tk, rs);
-    load_rows<T, BN, D, Sm::LDE>(sV, v + k_base, k0, Tk, rs);
+    load_rows<BN, D, Sm::LDE>(sK, k + k_base, k0, Tk, rs);
+    load_rows<BN, D, Sm::LDE>(sV, v + k_base, k0, Tk, rs);
     __syncthreads();
 
     warp_mm_abT<BN, D, Sm::LDE, Sm::LDE, Sm::LDS>(wS, wQ, sK);
@@ -127,14 +147,168 @@ __global__ void __launch_bounds__(THREADS)
       float p = 0.f;
       if (live && kc < Tk && !(causal && !(q_pos >= k_off + (float)kc)))
         p = expf(wS[r * Sm::LDS + c] * scale - lse_r);
-      const float ds = p * (wDP[r * Sm::LDS + c] + corr_r) * scale;
-      wDS[r * Sm::LDP + c] = from_f<T>(ds);  // ds cast to k's dtype
+      wDS[r * Sm::LDP + c] = p * (wDP[r * Sm::LDS + c] + corr_r) * scale;
     }
     __syncwarp();
     warp_mm_ab_acc<D, BN, Sm::LDP, Sm::LDE, Sm::LDO>(wDQ, wDS, sK);
     __syncthreads();
   }
-  store_rows<T, D, Sm::LDO>(dq + q_base, sDQ, q0, Tq, rs, nullptr);
+  store_rows<D, Sm::LDO>(dq + q_base, sDQ, q0, Tq, rs, nullptr);
+}
+
+// ---- dq, bf16: TMA + wgmma kernel ------------------------------------------
+
+template <int D>
+struct DqSm90 {
+  static constexpr int BN = 64;              // k rows per streamed tile
+  static constexpr int QT = BM * D * 2;      // bytes of the Q (or dO) tile
+  static constexpr int KT = BN * D * 2;      // bytes of a K (or V) tile
+  static constexpr int STAGES = 2;
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + QT;
+  static constexpr int RING = DO + QT;       // stage s: K at RING + 2 s KT,
+                                             // V one KT further
+  static constexpr int BAR = RING + STAGES * 2 * KT;  // q/do, then stages
+  static constexpr int BYTES = BAR + 8 * (1 + STAGES) + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(sm90::WG)
+    flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_do,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ corr, bf16* __restrict__ dq,
+                      int H, int Tq, int Tk, int causal, float scale,
+                      float q_off, float k_off) {
+  using namespace sm90;
+  using L = DqSm90<D>;
+  constexpr int BN = L::BN;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  const uint32_t sQ = smem_u32(smem + L::Q), sDO = smem_u32(smem + L::DO);
+
+  // heads on the fast grid axis, q tiles last to first on the slow one:
+  // under causal masking the last q tiles see the most k tiles, so the
+  // longest blocks start first and the tail is short
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // this thread's q rows (r and r + 8 of its warp's 16) and k column pair
+  const int r0 = warp * 16 + (lane >> 2), c2 = (lane & 3) * 2;
+
+  // the rows' lse (in log2 units) and corr, read once; rows past Tq and
+  // rows with no visible key are dead: their p, ds and dq are zero
+  float q_pos[2], lse2[2], corr_r[2];
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + r0 + 8 * i;
+    const float l = t < Tq ? lse[(size_t)bh * Tq + t] : NEG_INF;
+    q_pos[i] = q_off + (float)t;
+    live[i] = l > NEG_INF / 2;
+    lse2[i] = l * LOG2E;
+    corr_r[i] = t < Tq ? corr[(size_t)bh * Tq + t] : 0.f;
+  }
+
+  int num_k = (Tk + BN - 1) / BN;
+  if (causal) num_k = causal_num_k(q_off, k_off, q0, BN, num_k);
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + L::STAGES; ++i) mbar_init(&bar[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(&bar[0], 2 * L::QT);
+    tma_tile<D, BM>(smem + L::Q, &map_q, &bar[0], h, q0, b);
+    tma_tile<D, BM>(smem + L::DO, &map_do, &bar[0], h, q0, b);
+    if (num_k > 0) {
+      mbar_expect(&bar[1], 2 * L::KT);
+      tma_tile<D, BN>(smem + L::RING, &map_k, &bar[1], h, 0, b);
+      tma_tile<D, BN>(smem + L::RING + L::KT, &map_v, &bar[1], h, 0, b);
+    }
+  }
+
+  float acc_dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+  mbar_wait(&bar[0], 0);
+
+  for (int kt = 0; kt < num_k; ++kt) {
+    const int s = kt & 1, k0 = kt * BN;
+    if (tid == 0 && kt + 1 < num_k) {
+      // the other stage was released by the __syncthreads ending tile kt-1
+      unsigned char* nxt = smem + L::RING + (s ^ 1) * 2 * L::KT;
+      mbar_expect(&bar[1 + (s ^ 1)], 2 * L::KT);
+      tma_tile<D, BN>(nxt, &map_k, &bar[1 + (s ^ 1)], h, k0 + BN, b);
+      tma_tile<D, BN>(nxt + L::KT, &map_v, &bar[1 + (s ^ 1)], h, k0 + BN, b);
+    }
+    mbar_wait(&bar[1 + s], (kt >> 1) & 1);
+    const uint32_t sK = smem_u32(smem + L::RING + s * 2 * L::KT);
+    const uint32_t sV = sK + L::KT;
+
+    // S = Q . K^T and dP = dO . V^T
+    float acc_s[BN / 2], acc_dp[BN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(acc_s, desc_kmajor<D, BM>(sQ, kk), desc_kmajor<D, BN>(sK, kk),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(acc_dp, desc_kmajor<D, BM>(sDO, kk),
+               desc_kmajor<D, BN>(sV, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_s);
+    fence_regs(acc_dp);
+
+    // p = exp(s * scale - lse), zero on dead rows, masked pairs and keys
+    // past Tk (the TMA fills them with zeros, which would give s = 0);
+    // ds = p * (dp + corr) * scale
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, col = k0 + 8 * j + c2 + (e & 1);
+        float p = 0.f;
+        if (live[i] && col < Tk &&
+            !(causal && !(q_pos[i] >= k_off + (float)col)))
+          p = exp2f(fmaf(acc_s[4 * j + e], scale_log2, -lse2[i]));
+        acc_dp[4 * j + e] = p * (acc_dp[4 * j + e] + corr_r[i]) * scale;
+      }
+
+    // dQ += dS . K (ds cast to k's dtype, K read MN-major)
+    uint32_t dsf[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) to_a_frag(dsf[kk], acc_dp, kk);
+    fence_regs(acc_dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(acc_dq, dsf[kk], desc_mnmajor<D, BN>(sK, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_dq);
+    __syncthreads();  // every product has read stage s: it may be refilled
+  }
+
+  const size_t rs = (size_t)H * D;
+  bf16* dqb = dq + ((size_t)b * Tq * H + h) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + r0 + 8 * i;
+    if (t >= Tq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)t * rs + 8 * j + c2) =
+          pack_bf16(acc_dq[4 * j + 2 * i], acc_dq[4 * j + 2 * i + 1]);
+  }
 }
 
 // ---- dk/dv, fp32: scalar kernel ------------------------------------------
@@ -142,10 +316,10 @@ __global__ void __launch_bounds__(THREADS)
 template <int D>
 struct DkvSmem {
   using T = float;
-  static constexpr int BN = Cfg<T>::BN;
-  static constexpr int LDE = D + Cfg<T>::PAD;
+  static constexpr int BN = F32_BN;
+  static constexpr int LDE = D + F32_PAD;
   static constexpr int LDS = BN + 4;
-  static constexpr int LDP = BN + Cfg<T>::PAD;
+  static constexpr int LDP = BN + F32_PAD;
   static constexpr int LDO = D + 4;
   static constexpr int ES = (int)sizeof(T);
   static constexpr int K = 0;
@@ -206,8 +380,8 @@ __global__ void __launch_bounds__(THREADS)
   const size_t q_base = ((size_t)b * Tq * H + h) * D;
   const size_t k_base = ((size_t)b * Tk * H + h) * D;
 
-  load_rows<T, BM, D, Sm::LDE>(sK, k + k_base, k0, Tk, rs);
-  load_rows<T, BM, D, Sm::LDE>(sV, v + k_base, k0, Tk, rs);
+  load_rows<BM, D, Sm::LDE>(sK, k + k_base, k0, Tk, rs);
+  load_rows<BM, D, Sm::LDE>(sV, v + k_base, k0, Tk, rs);
   for (int i = threadIdx.x; i < BM * Sm::LDO; i += THREADS) {
     sDK[i] = 0.f;
     sDV[i] = 0.f;
@@ -233,8 +407,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int qt = start; qt < num_q; ++qt) {
     const int q0 = qt * BN;
     __syncthreads();  // previous tile's readers are done with sQ/sDO/sLse
-    load_rows<T, BN, D, Sm::LDE>(sQ, q + q_base, q0, Tq, rs);
-    load_rows<T, BN, D, Sm::LDE>(sDO, dout + q_base, q0, Tq, rs);
+    load_rows<BN, D, Sm::LDE>(sQ, q + q_base, q0, Tq, rs);
+    load_rows<BN, D, Sm::LDE>(sDO, dout + q_base, q0, Tq, rs);
     for (int i = threadIdx.x; i < BN; i += THREADS) {
       const bool in = q0 + i < Tq;
       sLse[i] = in ? lse_bh[q0 + i] : NEG_INF;  // rows past Tq are dead
@@ -260,8 +434,8 @@ __global__ void __launch_bounds__(THREADS)
     warp_mm_ab_acc<D, BN, Sm::LDP, Sm::LDE, Sm::LDO>(wDK, wDS, sQ);
   }
   __syncthreads();
-  store_rows<T, D, Sm::LDO>(dk + k_base, sDK, k0, Tk, rs, nullptr);
-  store_rows<T, D, Sm::LDO>(dv + k_base, sDV, k0, Tk, rs, nullptr);
+  store_rows<D, Sm::LDO>(dk + k_base, sDK, k0, Tk, rs, nullptr);
+  store_rows<D, Sm::LDO>(dv + k_base, sDV, k0, Tk, rs, nullptr);
 }
 
 // ---- dk/dv, bf16: TMA + wgmma kernel ---------------------------------------
@@ -454,15 +628,32 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       void* dq, int B, int H, int Tq, int Tk, int causal,
                       float scale, float q_off, float k_off,
                       cudaStream_t stream) {
-  constexpr int bytes = DqSmem<T, D>::BYTES;
-  cudaError_t err = prepare(flash_bwd_dq_kernel<T, D>, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tq + BM - 1) / BM, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(corr),
-      static_cast<T*>(dq), H, Tq, Tk, causal, scale, q_off, k_off);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int bytes = DqSmem<D>::BYTES;
+    cudaError_t err = prepare(flash_bwd_dq_kernel<D>, bytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid((Tq + BM - 1) / BM, B * H);
+    flash_bwd_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(corr),
+        static_cast<float*>(dq), H, Tq, Tk, causal, scale, q_off, k_off);
+  } else {
+    using L = DqSm90<D>;
+    constexpr int bytes = L::BYTES;
+    CUtensorMap mq, mk, mv, mdo;
+    cudaError_t err = sm90::make_map(&mq, q, B, Tq, H, D, BM);
+    if (err == cudaSuccess) err = sm90::make_map(&mdo, dout, B, Tq, H, D, BM);
+    if (err == cudaSuccess) err = sm90::make_map(&mk, k, B, Tk, H, D, L::BN);
+    if (err == cudaSuccess) err = sm90::make_map(&mv, v, B, Tk, H, D, L::BN);
+    if (err == cudaSuccess) err = prepare(flash_bwd_dq_sm90<D>, bytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid(B * H, (Tq + BM - 1) / BM);
+    flash_bwd_dq_sm90<D><<<grid, sm90::WG, bytes, stream>>>(
+        mq, mk, mv, mdo, static_cast<const float*>(lse),
+        static_cast<const float*>(corr), static_cast<bf16*>(dq), H, Tq, Tk,
+        causal, scale, q_off, k_off);
+  }
   return cudaGetLastError();
 }
 
@@ -505,15 +696,19 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 template <typename T, int D>
 int info_bwd(int which, int* info) {
-  if (which == 0)
-    return kernel_info(flash_bwd_dq_kernel<T, D>, THREADS,
-                       DqSmem<T, D>::BYTES, info);
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == 0)
+      return kernel_info(flash_bwd_dq_kernel<D>, THREADS, DqSmem<D>::BYTES,
+                         info);
     return kernel_info(flash_bwd_dkv_kernel<D>, THREADS, DkvSmem<D>::BYTES,
                        info);
-  else
+  } else {
+    if (which == 0)
+      return kernel_info(flash_bwd_dq_sm90<D>, sm90::WG, DqSm90<D>::BYTES,
+                         info);
     return kernel_info(flash_bwd_dkv_sm90<D>, sm90::WG, DkvSm90<D>::BYTES,
                        info);
+  }
 }
 
 }  // namespace hvdflash

@@ -8,15 +8,14 @@
 // rows, so the softmax bookkeeping of a row never leaves its warp.
 //
 // Types: fp32 stays full fp32 (scalar FMA, no TF32), which is what the
-// reference's fp32 tolerances need. bf16 takes the tensor cores: the dq
-// kernel through WMMA m16n16k16 with fp32 accumulation (the helpers below),
-// the forward and dk/dv kernels through TMA and wgmma (flash_sm90.cuh).
+// reference's fp32 tolerances need; the fp32 kernels use the helpers below.
+// bf16 takes the tensor cores: all three bf16 kernels run on TMA and wgmma
+// (flash_sm90.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace hvdflash {
@@ -29,53 +28,32 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int WROWS = 16;          // rows per warp
 
-// BN: rows of a streamed tile. PAD: element padding of a shared-memory row
-// (bf16: keeps WMMA's 32-byte alignment; fp32: staggers banks for the
-// scalar loops).
-template <typename T> struct Cfg;
-template <> struct Cfg<float> { static constexpr int BN = 32, PAD = 1; };
-template <> struct Cfg<bf16> { static constexpr int BN = 64, PAD = 8; };
+// The fp32 kernels: rows of a streamed tile, and the element padding of a
+// shared-memory row (staggers banks for the scalar loops).
+constexpr int F32_BN = 32;
+constexpr int F32_PAD = 1;
 
 __host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 // Copy rows [row0, row0 + ROWS) of one (batch, head) slice into shared
 // memory (row stride LD); rows at or past t_len are zero. `src` points at
 // element (b, 0, h, 0); `rs` is the row stride H * D.
-template <typename T, int ROWS, int D, int LD>
-__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
+template <int ROWS, int D, int LD>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const float* __restrict__ src,
                                           int row0, int t_len, size_t rs) {
-  constexpr int VEC =
-      ((LD * (int)sizeof(T)) % 16 == 0) ? 16 / (int)sizeof(T) : 1;
-  constexpr int CHUNKS = D / VEC;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
+  for (int i = threadIdx.x; i < ROWS * D; i += THREADS) {
+    const int r = i / D, c = i % D;
     const int t = row0 + r;
-    if constexpr (VEC == 1) {
-      dst[r * LD + c] = t < t_len ? src[(size_t)t * rs + c] : from_f<T>(0.f);
-    } else {
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (t < t_len)
-        val = *reinterpret_cast<const uint4*>(src + (size_t)t * rs + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    }
+    dst[r * LD + c] = t < t_len ? src[(size_t)t * rs + c] : 0.f;
   }
 }
 
 // One block-wide store of a fp32 shared-memory tile (row stride LD) into
 // rows [row0, row0 + BM) of a [B, T, H, D] slice, skipping rows >= t_len;
 // each row is divided by max(row_div[r], 1e-30) when row_div is given.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst,
+template <int D, int LD>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
                                            const float* src, int row0,
                                            int t_len, size_t rs,
                                            const float* row_div) {
@@ -85,7 +63,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst,
     if (t >= t_len) continue;
     float x = src[r * LD + c];
     if (row_div != nullptr) x = x / fmaxf(row_div[r], 1e-30f);
-    dst[(size_t)t * rs + c] = from_f<T>(x);
+    dst[(size_t)t * rs + c] = x;
   }
 }
 
@@ -150,57 +128,6 @@ __device__ __forceinline__ void warp_mm_ab_acc(float* C, const float* A,
   for (int r = 0; r < WROWS; ++r)
 #pragma unroll
     for (int j = 0; j < NC; ++j) C[r * LDC + lane + 32 * j] = acc[r][j];
-}
-
-template <int N, int K, int LDA, int LDB, int LDC>
-__device__ __forceinline__ void warp_mm_abT(float* C, const bf16* A,
-                                            const bf16* B) {
-  using namespace nvcuda;
-  static_assert(N % 16 == 0 && K % 16 == 0, "WMMA tiles are 16x16x16");
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[N / 16];
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < K; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + kk, LDA);
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j) {
-      // B^T as a column-major K x N operand: element (kk', n) lives at
-      // B[(j*16 + n) * LDB + kk + kk'].
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, B + j * 16 * LDB + kk, LDB);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j)
-    wmma::store_matrix_sync(C + j * 16, acc[j], LDC, wmma::mem_row_major);
-}
-
-template <int N, int K, int LDA, int LDB, int LDC>
-__device__ __forceinline__ void warp_mm_ab_acc(float* C, const bf16* A,
-                                               const bf16* B) {
-  using namespace nvcuda;
-  static_assert(N % 16 == 0 && K % 16 == 0, "WMMA tiles are 16x16x16");
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[N / 16];
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j)
-    wmma::load_matrix_sync(acc[j], C + j * 16, LDC, wmma::mem_row_major);
-#pragma unroll
-  for (int kk = 0; kk < K; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + kk, LDA);
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, B + kk * LDB + j * 16, LDB);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j)
-    wmma::store_matrix_sync(C + j * 16, acc[j], LDC, wmma::mem_row_major);
 }
 
 // Number of streamed k tiles a causal q tile [q0, q0 + BM) can see: the

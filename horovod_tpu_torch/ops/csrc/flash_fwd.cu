@@ -46,10 +46,10 @@ namespace hvdflash {
 template <int D>
 struct FwdSmem {
   using T = float;
-  static constexpr int BN = Cfg<T>::BN;
-  static constexpr int LDE = D + Cfg<T>::PAD;   // q/k/v tiles
+  static constexpr int BN = F32_BN;
+  static constexpr int LDE = D + F32_PAD;   // q/k/v tiles
   static constexpr int LDS = BN + 4;            // fp32 scores
-  static constexpr int LDP = BN + Cfg<T>::PAD;  // probabilities
+  static constexpr int LDP = BN + F32_PAD;  // probabilities
   static constexpr int LDO = D + 4;             // fp32 accumulator
   static constexpr int ES = (int)sizeof(T);
   static constexpr int Q = 0;
@@ -89,7 +89,7 @@ __global__ void __launch_bounds__(THREADS)
   const T* kb = k + ((size_t)b * Tk * H + h) * D;
   const T* vb = v + ((size_t)b * Tk * H + h) * D;
 
-  load_rows<T, BM, D, Sm::LDE>(sQ, qb, q0, Tq, rs);
+  load_rows<BM, D, Sm::LDE>(sQ, qb, q0, Tq, rs);
   for (int i = threadIdx.x; i < BM * Sm::LDO; i += THREADS) sO[i] = 0.f;
 
   // Two lanes per row: lane (r, half) owns columns half, half + 2, ...
@@ -112,8 +112,8 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int kt = 0; kt < num_k; ++kt) {
     const int k0 = kt * BN;
-    load_rows<T, BN, D, Sm::LDE>(sK, kb, k0, Tk, rs);
-    load_rows<T, BN, D, Sm::LDE>(sV, vb, k0, Tk, rs);
+    load_rows<BN, D, Sm::LDE>(sK, kb, k0, Tk, rs);
+    load_rows<BN, D, Sm::LDE>(sV, vb, k0, Tk, rs);
     __syncthreads();
 
     // s = (q . k^T) * scale, scale after the product as in the reference
@@ -155,7 +155,7 @@ __global__ void __launch_bounds__(THREADS)
           l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : NEG_INF;
   }
   __syncthreads();
-  store_rows<T, D, Sm::LDO>(o + ((size_t)b * Tq * H + h) * D, sO, q0, Tq, rs,
+  store_rows<D, Sm::LDO>(o + ((size_t)b * Tq * H + h) * D, sO, q0, Tq, rs,
                            sL);
 }
 

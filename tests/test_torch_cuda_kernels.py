@@ -183,6 +183,9 @@ EDGE_CASES = [
      100, 0.0, 0.0, True),
     ("ragged_100_300_causal_d128", "bfloat16", True, 1, 100, 300, 2, 128,
      100, 100, 200.0, 0.0, True),
+    # one q tile against a long key side: the dq kernel's ring wraps 16 times
+    ("one_q_tile_long_k", "bfloat16", False, 2, 64, 1024, 2, 64, 64, 1024,
+     0.0, 0.0, True),
 ]
 
 
@@ -191,8 +194,8 @@ EDGE_CASES = [
 def test_cuda_kernel_edges_match_plain(cuda_device, case):
     """The TMA/wgmma kernels' edges: one tile (the ring never fills),
     ragged lengths (TMA zero fill) down to one row and one key, Tq != Tk
-    with offsets at d=128, and rows with no visible key under 512-row
-    reference tiles."""
+    with offsets at d=128, rows with no visible key under 512-row
+    reference tiles, and one q tile against 1024 keys."""
     _, dtype, causal, b, tq, tk, h, d, bq, bk, q_off, k_off, with_dlse = \
         case
     dt = getattr(torch, dtype)
@@ -227,7 +230,7 @@ def test_cuda_dead_rows_take_the_mean_over_reference_tiles(cuda_device):
 def test_cuda_redesigned_kernels_keep_accumulators_in_registers(cuda_device):
     """The bf16 TMA/wgmma kernels do not spill and keep at least two blocks
     resident per SM at every head width."""
-    for name in ("flash_fwd", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         for d in (32, 64, 128):
             info = fa.kernel_info(name, torch.bfloat16, d)
             assert info["local_bytes"] == 0, (name, d, info)

@@ -72,6 +72,42 @@ def test_flash_backward_matches_reference(causal):
         np.testing.assert_allclose(_np(g), np.asarray(w), **GRAD)
 
 
+BWD_CASES = {  # name -> (causal, Tq, Tk, q_offset, with a dlse cotangent)
+    "causal": (True, 128, 128, None, False),
+    "full": (False, 128, 128, None, False),
+    "offset_tq_ne_tk_dlse": (True, 128, 256, 128.0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_flash_backward_matches_reference_at_each_head_width(head_dim, case):
+    """dq, dk and dv against jax.grad of the reference (interpret mode,
+    return_lse) at every head width the CUDA kernels take, 64-row blocks."""
+    causal, tq, tk, q_off, with_dlse = BWD_CASES[case]
+    rng = np.random.RandomState(head_dim + tq + tk)
+    q, dout = (rng.randn(2, tq, 2, head_dim).astype(np.float32)
+               for _ in range(2))
+    k, v = (rng.randn(2, tk, 2, head_dim).astype(np.float32)
+            for _ in range(2))
+    dl = rng.randn(2, 2, tq).astype(np.float32) if with_dlse else \
+        np.zeros((2, 2, tq), np.float32)
+    kw = dict(causal=causal, block_q=64, block_k=64, q_offset=q_off,
+              k_offset=None if q_off is None else 0.0, return_lse=True)
+
+    def loss_ref(q, k, v):
+        o, lse = ref.flash_attention(q, k, v, interpret=True, **kw)
+        return jnp.sum(o * dout) + jnp.sum(lse * dl)
+
+    want = jax.grad(loss_ref, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ts = [_t(x, True) for x in (q, k, v)]
+    o, lse = fa.flash_attention(*ts, **kw)
+    ((o * _t(dout)).sum() + (lse * _t(dl)).sum()).backward()
+    for name, t, w in zip(("dq", "dk", "dv"), ts, want):
+        np.testing.assert_allclose(_np(t.grad), np.asarray(w), err_msg=name,
+                                   **GRAD)
+
+
 def test_flash_backward_matches_dense_autograd():
     """The backward kernels' plain versions against autograd through the
     port's own dense path."""
