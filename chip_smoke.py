@@ -36,12 +36,26 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                params) at seq 1024 and batch 8, make_train_step with AdamW
                and bf16 gradient compression, 5 steps on one fixed batch;
                the loss must be finite and fall, and each kernel must have
-               launched 12 times per step.
+               launched 12 times per step;
+9. collectives - every collective of parallel/collectives.py once on card
+               tensors, on NCCL at world 1, in fp32, bf16 and int32, each
+               equal to its world-1 value; then SyncBatchNorm forward and
+               backward against the ResNet's plain BatchNorm on the same
+               tensors;
+10. resnet   - the second main path: init() on NCCL, ResNet50 (bf16
+               compute, fp32 params and BatchNorm statistics) on 224x224x3
+               NHWC images, 1000 classes, batch 128,
+               make_stateful_train_step with SGD(lr=0.05, momentum=0.9), 5
+               steps on one fixed batch from seed 0 (the configuration of
+               examples/jax/jax_synthetic_benchmark.py); the loss must be
+               finite and fall and every running statistic must have moved
+               and stay finite and fp32. It runs no flash kernel.
 
 Then the kernels line, the nvidia-smi line, and the final
 ``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes the nvcc
-logs there; ``--profile`` adds one profiled train step (device time by
-kernel, device idle share) and, with ``--out``, its Chrome trace.
+logs there; ``--profile`` adds one profiled GPT train step and one
+profiled ResNet-50 step (device time by kernel, device idle share) and,
+with ``--out``, their Chrome traces.
 """
 
 from __future__ import annotations
@@ -492,9 +506,28 @@ def parity(device):
     return err
 
 
-def profile_step(step, batch, out_dir):
+# kernel-name patterns of each class, checked in this order; the rest is
+# elementwise
+KERNEL_CLASSES = (
+    ("flash", ("hvdflash",)),
+    ("pool", ("pool",)),
+    ("nccl", ("nccl",)),
+    ("conv_gemm", ("conv", "xmma", "gemm", "cutlass", "nvjet", "cudnn")),
+    ("reduction", ("reduce_kernel", "softmax")),
+    ("copy", ("copy", "memcpy", "memset")),
+)
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    return next((cls for cls, keys in KERNEL_CLASSES
+                 if any(k in low for k in keys)), "elementwise")
+
+
+def profile_step(step, batch, out_dir, trace_name="train_step.json"):
     """One more train step under torch.profiler: device time by kernel
-    (top 15) and the device's busy share of the step's wall time."""
+    (top 15) and by class of kernel (KERNEL_CLASSES), and the device's
+    busy share of the step's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -505,7 +538,7 @@ def profile_step(step, batch, out_dir):
         step(batch).loss.item()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if out_dir:
-        prof.export_chrome_trace(os.path.join(out_dir, "train_step.json"))
+        prof.export_chrome_trace(os.path.join(out_dir, trace_name))
 
     def dev_us(evt):
         return getattr(evt, "self_device_time_total",
@@ -517,9 +550,14 @@ def profile_step(step, batch, out_dir):
               and not getattr(e, "is_user_annotation", False)]
     events.sort(key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
+    by_class: dict = {}
+    for e in events:
+        cls = kernel_class(e.key)
+        by_class[cls] = by_class.get(cls, 0.0) + dev_us(e) / 1e3
     return {"phase": "profile", "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "device_ms_by_class": by_class,
             "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
                      "count": e.count} for e in events[:15]]}
 
@@ -574,6 +612,182 @@ def train(device, profile_dir=None, profile=False):
         "steady_step_ms": mean_ms,
         "tokens_per_s": MAIN["b"] * MAIN["t"] / (mean_ms / 1e3),
         "peak_mem_bytes": peak, "launches": counts,
+        "backend": "nccl", "world_size": 1}
+
+
+# ---------------------------------------------------------------------------
+# the collectives and SyncBatchNorm, the ResNet-50 path
+
+
+def collectives_check(device):
+    """Every collective at world 1 on NCCL, each equal to its world-1
+    value (exactly: one replica's sum, product, gather or exchange is its
+    own input), in fp32, bf16 and int32; then SyncBatchNorm against the
+    ResNet's BatchNorm (both with flax's momentum) on the same card
+    tensors, forward and backward."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import collectives as c
+    hvd.init()
+    checked = []
+    try:
+        g = torch.Generator().manual_seed(5)
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            x = (torch.randn(8, 4, generator=g) * 4).to(device, dt)
+            one = [(f"allreduce_{op.name.lower()}",
+                    c.allreduce(x, op=op), x)
+                   for op in (c.Sum, c.Average, c.Min, c.Max, c.Product)]
+            pairs = one + [
+                ("grouped_allreduce", c.grouped_allreduce([x, x[0]])[1],
+                 x[0]),
+                ("hierarchical_allreduce", c.hierarchical_allreduce(x),
+                 c.allreduce(x)),
+                ("hierarchical_max", c.hierarchical_allreduce(x, op=c.Max),
+                 x),
+                ("allgather", c.allgather(x), x),
+                ("alltoall", c.alltoall(x), x),
+                ("alltoall_1_0", c.alltoall(x, split_axis=1, concat_axis=0),
+                 x),
+                ("reducescatter_average", c.reducescatter(x), x),
+                ("reducescatter_sum", c.reducescatter(x, op=c.Sum), x),
+                ("ppermute_identity", c.ppermute(x, [(0, 0)]), x),
+                ("ppermute_empty", c.ppermute(x, []), torch.zeros_like(x)),
+                ("broadcast", c.broadcast(x, 0, axis=("data", "fsdp")), x),
+            ]
+            pairs += [("allgather_fsdp", c.allgather(x, axis="fsdp"), x),
+                      ("allgather_data_fsdp",
+                       c.allgather(x, axis=("data", "fsdp")), x)]
+            for name, got, want in pairs:
+                if got.dtype != want.dtype or got.device != x.device or \
+                        not bool(torch.equal(got, want)):
+                    raise AssertionError(f"collectives: {name} {dt} differs "
+                                         "from its world-1 value")
+                checked.append(f"{name}/{str(dt)[6:]}")
+            c.barrier()
+        bn_err = sync_bn_check(device)
+    finally:
+        hvd.shutdown()
+    return {"phase": "collectives", "backend": "nccl", "world_size": 1,
+            "checked": len(checked), "cases": checked,
+            "sync_batch_norm_max_rel_err": bn_err}
+
+
+def sync_bn_check(device):
+    """SyncBatchNorm (NHWC, features last) and the ResNet's BatchNorm
+    (the same tensor seen as NCHW) on one [32, 28, 28, 128] fp32 card
+    tensor: outputs, input, scale and bias gradients and running
+    statistics within 1e-5 of the largest value of each, elementwise, and
+    1e-5 normwise."""
+    import torch
+    from horovod_tpu_torch.models.resnet import BatchNorm
+    from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm
+    g = torch.Generator().manual_seed(6)
+    x = (torch.randn(32, 28, 28, 128, generator=g) * 2 + 0.5).to(device)
+    cot = torch.randn(32, 28, 28, 128, generator=g).to(device)
+    scale = torch.rand(128, generator=g).to(device) + 0.5
+    bias = torch.randn(128, generator=g).to(device)
+    outs = []
+    for sync in (True, False):
+        bn = (SyncBatchNorm(128) if sync else BatchNorm(128)).to(device)
+        with torch.no_grad():
+            bn.scale.copy_(scale)
+            bn.bias.copy_(bias)
+        xg = x.clone().requires_grad_(True)
+        y = bn(xg) if sync else bn(xg.permute(0, 3, 1, 2), True) \
+            .permute(0, 2, 3, 1)
+        (y * cot).sum().backward()
+        outs.append({"y": y.detach(), "dx": xg.grad, "dscale": bn.scale.grad,
+                     "dbias": bn.bias.grad, "mean": bn.mean.clone(),
+                     "var": bn.var.clone()})
+    torch.cuda.synchronize()
+    errs = {}
+    for key, want in outs[1].items():
+        got = outs[0][key]
+        scale_of = float(want.abs().max())
+        errs[key] = close(f"sync_batch_norm/{key}", got, want, 0.0,
+                          1e-5 * scale_of, norm_tol=1e-5)[0] / scale_of
+    return errs
+
+
+RESNET = dict(batch=128, image=224, classes=1000, lr=0.05, momentum=0.9)
+# one step of ResNet-50 is about 3 x 4.1 GMAC x 2 FLOP per image: no card
+# does it faster than at the bf16 peak, so a faster reading did not wait
+RESNET_FLOP_PER_IMAGE = 3 * 4.1e9 * 2
+
+
+def resnet(device, profile_dir=None, profile=False):
+    """The second main path: ResNet-50 through init() on NCCL and
+    make_stateful_train_step at the reference example's configuration."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import dp
+    hvd.init()
+    try:
+        model = ResNet50(num_classes=RESNET["classes"],
+                         dtype=torch.bfloat16)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = torch.optim.SGD(model.parameters(), lr=RESNET["lr"],
+                              momentum=RESNET["momentum"])
+
+        def loss_fn(m, b):
+            return F.cross_entropy(m(b["image"], train=True),
+                                   b["label"]), {}
+        step = dp.make_stateful_train_step(model, loss_fn, opt)
+        n, sz = RESNET["batch"] * hvd.size(), RESNET["image"]
+        rs = np.random.RandomState(0)
+        batch = dp.shard_batch({
+            "image": torch.tensor(rs.rand(n, sz, sz, 3)).to(torch.bfloat16),
+            "label": torch.tensor(rs.randint(0, RESNET["classes"], n))})
+        batch = {k: v.to(hvd.device()) for k, v in batch.items()}
+        before = {k: b.clone() for k, b in model.named_buffers()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        losses, step_ms = [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            out = step(batch)
+            losses.append(out.loss.item())  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = fa.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        after = {k: b.clone() for k, b in model.named_buffers()}
+        prof = profile_step(step, batch, profile_dir,
+                            "resnet_step.json") if profile else None
+    finally:
+        hvd.shutdown()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"resnet: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet: loss did not fall {losses}")
+    for name, b in after.items():
+        if b.dtype != torch.float32 or not bool(torch.isfinite(b).all()) \
+                or bool(torch.equal(b, before[name])):
+            raise AssertionError(f"resnet: running statistic {name} is "
+                                 f"{b.dtype}, not finite or did not move")
+    if any(counts.values()):
+        raise AssertionError(f"resnet: flash kernels launched {counts}")
+    steady = step_ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    bound_ms = RESNET_FLOP_PER_IMAGE * RESNET["batch"] / \
+        PEAK_FLOPS["bfloat16"] * 1e3
+    if mean_ms < bound_ms:
+        raise AssertionError(f"resnet: {mean_ms} ms per step is below the "
+                             f"{bound_ms} ms bound: the timing did not wait")
+    return prof, {
+        "phase": "resnet", "model": "ResNet50", "params": n_params,
+        "batch": RESNET["batch"], "image": [RESNET["image"]] * 2 + [3],
+        "layout": "NHWC", "dtype": "bfloat16", "param_dtype": "float32",
+        "optimizer": "SGD(lr=0.05, momentum=0.9)", "steps": STEPS,
+        "losses": losses, "step_ms": step_ms, "steady_step_ms": mean_ms,
+        "images_per_s": RESNET["batch"] / (mean_ms / 1e3),
+        "peak_mem_bytes": peak, "running_stats_moved": len(after),
+        "flash_launches": counts, "bound_step_ms": bound_ms,
         "backend": "nccl", "world_size": 1}
 
 
@@ -638,6 +852,12 @@ def main() -> int:
     emit(train_line)
     if prof is not None:
         emit(prof)
+
+    emit(collectives_check(device))
+    prof, resnet_line = resnet(device, opts.out, opts.profile)
+    emit(resnet_line)
+    if prof is not None:
+        emit(dict(prof, model="ResNet50"))
 
     kernels = []
     for name in NAMES:

@@ -5,13 +5,14 @@ layout and never imports it (nor JAX). Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``.
 """
 
-from horovod_tpu_torch.common.basics import (device, init, is_initialized,
-                                             local_rank, rank, shutdown,
-                                             size)
+from horovod_tpu_torch.common.basics import (cross_rank, cross_size, device,
+                                             init, is_initialized,
+                                             local_rank, local_size, rank,
+                                             shutdown, size)
 from horovod_tpu_torch.common.reduce_ops import (Average, Max, Min, Op,
-                                                 Sum)
+                                                 Product, Sum)
 from horovod_tpu_torch.compression import Compression
 
 __all__ = ["init", "shutdown", "is_initialized", "rank", "size",
-           "local_rank", "device", "Op", "Average", "Sum", "Min", "Max",
-           "Compression"]
+           "local_rank", "local_size", "cross_rank", "cross_size", "device",
+           "Op", "Average", "Sum", "Min", "Max", "Product", "Compression"]

@@ -1,12 +1,16 @@
-"""Process context: init/shutdown/rank/size/local_rank.
+"""Process context: init/shutdown/rank/size/local_rank and the host
+topology (local_size, cross_rank, cross_size).
 
 Counterpart of ``horovod_tpu/common/basics.py``. Topology comes from the same
 launcher env contract (``HOROVOD_RANK``, ``HOROVOD_SIZE``,
-``HOROVOD_LOCAL_RANK``; reference basics.py:76-82). Where the reference
+``HOROVOD_LOCAL_RANK``, ``HOROVOD_LOCAL_SIZE``, ``HOROVOD_CROSS_RANK``,
+``HOROVOD_CROSS_SIZE``; reference basics.py:76-82). Where the reference
 builds a device mesh, the port runs one process per GPU and creates a
 ``torch.distributed`` process group: NCCL on the card, gloo for
 ``device="cpu"``. The group exists even at world size 1, so the gradient
-allreduce always runs through the same backend.
+allreduce always runs through the same backend. ``init()`` also creates one
+subgroup per replica axis (``data``, ``fsdp``) of the mesh spec, which the
+collectives map their ``axis`` argument to.
 """
 
 from __future__ import annotations
@@ -14,13 +18,13 @@ from __future__ import annotations
 import os
 import threading
 from datetime import timedelta
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common.env import env_int
-from horovod_tpu_torch.parallel.mesh import MeshSpec
+from horovod_tpu_torch.parallel.mesh import MeshSpec, replica_groups
 
 
 def resolve_device(device=None) -> torch.device:
@@ -44,7 +48,13 @@ class _Context:
         self.rank = 0
         self.size = 1
         self.local_rank = 0
+        self.local_size = 1
+        self.cross_rank = 0
+        self.cross_size = 1
         self.device: Optional[torch.device] = None
+        # replica axes -> (process group, None for the whole world; the
+        # group's global ranks in axis index order)
+        self.groups: dict = {}
 
     def init(self, device=None, mesh_spec: Optional[MeshSpec] = None,
              store: Optional[dist.Store] = None,
@@ -56,7 +66,7 @@ class _Context:
             rank = env_int("HOROVOD_RANK")
             size = env_int("HOROVOD_SIZE")
             local_rank = env_int("HOROVOD_LOCAL_RANK")
-            (mesh_spec or MeshSpec()).resolve(size)
+            sizes = (mesh_spec or MeshSpec()).resolve(size)
             if dev.type == "cuda":
                 torch.cuda.set_device(dev)
                 backend = "nccl"
@@ -69,6 +79,10 @@ class _Context:
             dist.init_process_group(backend, store=store, rank=rank,
                                     world_size=size, timeout=timeout)
             self.rank, self.size, self.local_rank = rank, size, local_rank
+            self.local_size = env_int("HOROVOD_LOCAL_SIZE")
+            self.cross_rank = env_int("HOROVOD_CROSS_RANK", rank)
+            self.cross_size = env_int("HOROVOD_CROSS_SIZE", size)
+            self.groups = _axis_groups(sizes, rank)
             self.device = dev
             self.initialized = True
 
@@ -79,6 +93,23 @@ class _Context:
             dist.destroy_process_group()
             self.initialized = False
             self.device = None
+            self.groups = {}
+
+
+def _axis_groups(sizes: dict, rank: int) -> dict:
+    """This rank's process group for each set of replica axes. A set whose
+    one group is the whole world uses the default group; the others are
+    created with ``new_subgroups_by_enumeration``, which every rank calls
+    for every set, in the same order, as ``torch.distributed`` requires."""
+    out = {}
+    for axes, groups in replica_groups(sizes).items():
+        mine = next(g for g in groups if rank in g)
+        if len(groups) == 1:
+            out[axes] = (None, mine)
+        else:
+            group, _ = dist.new_subgroups_by_enumeration(groups)
+            out[axes] = (group, mine)
+    return out
 
 
 def _default_store(rank: int, size: int, timeout: timedelta) -> dist.Store:
@@ -132,6 +163,30 @@ def size() -> int:
 def local_rank() -> int:
     _require_init()
     return _ctx.local_rank
+
+
+def local_size() -> int:
+    _require_init()
+    return _ctx.local_size
+
+
+def cross_rank() -> int:
+    _require_init()
+    return _ctx.cross_rank
+
+
+def cross_size() -> int:
+    _require_init()
+    return _ctx.cross_size
+
+
+def axis_group(axes: Tuple[str, ...]) -> Tuple[Optional[dist.ProcessGroup],
+                                               List[int]]:
+    """The process group of replica axes ``axes`` (a tuple in
+    ``AXIS_ORDER`` order) that holds this rank, ``None`` for the whole
+    world, and its global ranks in axis index order."""
+    _require_init()
+    return _ctx.groups[axes]
 
 
 def device() -> torch.device:

@@ -1,8 +1,9 @@
 """Environment variables the port reads.
 
-Counterpart of ``horovod_tpu/common/env_registry.py`` (``env_int``),
-limited to the variables this package reads, all integers so far. Same
-parsing rule: unset or empty means the default.
+Counterpart of ``horovod_tpu/common/env_registry.py`` (``env_int``,
+``env_bool``), limited to the variables this package reads. Same parsing
+rules: unset or empty means the default; a boolean is false for "0",
+"false", "no" and "off" (any case) and true for anything else.
 """
 
 from __future__ import annotations
@@ -14,21 +15,42 @@ REGISTRY = {
     "HOROVOD_RANK": (0, "global process rank (launcher contract)"),
     "HOROVOD_SIZE": (1, "number of processes in the job"),
     "HOROVOD_LOCAL_RANK": (0, "rank within this host"),
+    "HOROVOD_LOCAL_SIZE": (1, "processes on this host"),
+    "HOROVOD_CROSS_RANK": (None, "host index of this process (default: "
+                                 "the rank)"),
+    "HOROVOD_CROSS_SIZE": (None, "number of hosts (default: the size)"),
+    "HOROVOD_HIERARCHICAL_ALLREDUCE": (
+        False, "two-level gradient allreduce: reduce-scatter over fsdp, "
+               "allreduce over data, all-gather over fsdp"),
     "HOROVOD_FLASH_MIN_SEQ": (
         256, "key length from which attention routes to the flash kernels "
              "(the crossover measured on an H100)"),
 }
 
 _UNSET = object()
+_FALSY = ("", "0", "false", "no", "off")
+
+
+def _raw(name: str):
+    if name not in REGISTRY:
+        raise KeyError(f"{name} is not a variable horovod_tpu_torch reads; "
+                       "declare it in horovod_tpu_torch/common/env.py")
+    return os.environ.get(name)
 
 
 def env_int(name: str, default=_UNSET) -> int:
     """The integer value of registered variable ``name``; ``default`` (or
     the registered default) when it is unset or empty."""
-    if name not in REGISTRY:
-        raise KeyError(f"{name} is not a variable horovod_tpu_torch reads; "
-                       "declare it in horovod_tpu_torch/common/env.py")
-    v = os.environ.get(name)
+    v = _raw(name)
     if v in (None, ""):
         return REGISTRY[name][0] if default is _UNSET else default
     return int(v)
+
+
+def env_bool(name: str, default=_UNSET) -> bool:
+    """The truth value of registered variable ``name``; ``default`` (or the
+    registered default) when it is unset or empty."""
+    v = _raw(name)
+    if v in (None, ""):
+        return bool(REGISTRY[name][0] if default is _UNSET else default)
+    return v.strip().lower() not in _FALSY

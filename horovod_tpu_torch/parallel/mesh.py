@@ -2,22 +2,28 @@
 
 Counterpart of ``horovod_tpu/parallel/mesh.py`` (``MeshSpec``,
 ``AXIS_ORDER``). The reference builds a ``jax.sharding.Mesh`` over devices;
-the port runs one process per GPU and reduces over a ``torch.distributed``
-process group, so a spec resolves to axis sizes over the world size. Only the
-``data`` axis is supported so far: any other axis above 1 raises.
+the port runs one process per GPU and reduces over ``torch.distributed``
+process groups, so a spec resolves to axis sizes over the world size. The
+two replica axes, ``data`` and ``fsdp``, are supported: ranks are laid out
+row-major in ``AXIS_ORDER``, so ``fsdp`` is the fast axis. Any other axis
+above 1 raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Dict, List, Tuple
 
 # Canonical axis order, as in the reference: slower axes first.
 AXIS_ORDER = ("pipe", "data", "fsdp", "expert", "seq", "model")
 
-# The ROADMAP item that ports each axis beyond ``data``.
+# The replica axes a pure data-parallel step reduces over (reference
+# ``dp.DP_AXES``).
+REPLICA_AXES = ("data", "fsdp")
+
+# The ROADMAP item that ports each axis beyond the replica axes.
 _ROADMAP_ITEM = {
-    "fsdp": "queue A, 'int8 wire and ZeRO-1'",
     "model": "queue A, 'Remaining parallelism' (tp)",
     "seq": "queue A, 'Remaining parallelism' (sp)",
     "pipe": "queue A, 'Remaining parallelism' (pp)",
@@ -52,9 +58,26 @@ class MeshSpec:
             raise ValueError(
                 f"mesh {sizes} needs {fixed} devices, have {n_devices}")
         for axis, n in sizes.items():
-            if axis != "data" and n > 1:
+            if axis not in REPLICA_AXES and n > 1:
                 raise NotImplementedError(
                     f"mesh axis {axis!r}={n}: horovod_tpu_torch supports "
-                    f"only the 'data' axis so far; see ROADMAP.md "
-                    f"{_ROADMAP_ITEM[axis]}")
+                    f"only the replica axes {REPLICA_AXES} so far; see "
+                    f"ROADMAP.md {_ROADMAP_ITEM[axis]}")
         return sizes
+
+
+def replica_groups(sizes: dict) -> Dict[Tuple[str, ...], List[List[int]]]:
+    """The rank groups of each set of replica axes, for axis sizes from
+    :meth:`MeshSpec.resolve`. Ranks are row-major over (data, fsdp): an
+    ``fsdp`` group is a run of consecutive ranks sharing a ``data`` index,
+    a ``data`` group the strided ranks sharing an ``fsdp`` index, and
+    ``("data", "fsdp")`` the whole world. Each group lists its ranks in
+    ascending order, which is the axis index order."""
+    n_data, n_fsdp = sizes["data"], sizes["fsdp"]
+    return {
+        ("data",): [[d * n_fsdp + f for d in range(n_data)]
+                    for f in range(n_fsdp)],
+        ("fsdp",): [[d * n_fsdp + f for f in range(n_fsdp)]
+                    for d in range(n_data)],
+        REPLICA_AXES: [list(range(n_data * n_fsdp))],
+    }

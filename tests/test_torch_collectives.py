@@ -105,19 +105,26 @@ def test_broadcast_replicate_and_axis_queries_world2(world2):
 
 
 def test_unported_ops_raise(world1):
+    """Adasum and the axes beyond the replica axes are not ported; Product
+    is an allreduce case above."""
     from horovod_tpu_torch.parallel import collectives as c
-    for op in (c.Product, c.Adasum):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            c.allreduce(torch.ones(2), op=op)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        c.allreduce(torch.ones(2), op=c.Adasum)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         c.allreduce(torch.ones(2), axis="model")
 
 
 def test_mesh_spec_supports_data_axis_only():
+    """The replica axes, data and fsdp, resolve as in the reference; the
+    other axes still raise."""
     from horovod_tpu_torch.parallel.mesh import AXIS_ORDER, MeshSpec
     assert AXIS_ORDER == mesh_lib.AXIS_ORDER
     assert MeshSpec().resolve(4) == mesh_lib.MeshSpec().resolve(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MeshSpec(data=2, model=2).resolve(4)
+    assert MeshSpec(data=2, fsdp=2).resolve(4) == \
+        mesh_lib.MeshSpec(data=2, fsdp=2).resolve(4)
+    assert MeshSpec(fsdp=4).resolve(8) == mesh_lib.MeshSpec(fsdp=4).resolve(8)
+    for axis in ("model", "seq", "pipe", "expert"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MeshSpec(data=2, **{axis: 2}).resolve(4)
     with pytest.raises(ValueError):
         MeshSpec(data=3).resolve(4)

@@ -1,0 +1,96 @@
+"""On several cards: the multi-process cases of tests/torch_dist_cases.py on
+NCCL, one process per card, against the same cases on gloo on the CPU
+(which tests/test_torch_collectives_more.py and
+tests/test_torch_stateful_dp.py hold against the reference): every
+collective over data, fsdp and both at data=2 x fsdp=2, and SyncBatchNorm,
+the stateful step with the hierarchical allreduce, make_eval_step and the
+dropout generator at data=2 and at data=2 x fsdp=2. Imports torch and the
+port only (no JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_dist.py -q
+
+Every test skips where fewer CUDA devices than its world are present.
+Tolerances: those of the CPU tests against the reference (TF32 is off on
+the cards)."""
+
+import numpy as np
+import pytest
+import torch
+
+import torch_dist_cases as cases
+
+TOL = {"float32": 1e-6, "bfloat16": 8e-3, "int32": 0.0}
+FWD = dict(rtol=1e-4, atol=1e-5)
+GRAD = dict(rtol=2e-3, atol=2e-4)
+PARAM = dict(rtol=1e-5, atol=2e-4 * cases.SGD_LR)
+MESH = {2: (2, 1), 4: (2, 2)}
+
+
+def cards(world):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+
+
+def both_backends(world, tmp_path, job, job_args=()):
+    """(NCCL on the cards, gloo on the CPU) results of one job."""
+    out = []
+    for dev in ("cuda", "cpu"):
+        (tmp_path / dev).mkdir()
+        out.append(cases.spawn(world, tmp_path / dev, job, job_args,
+                               timeout=300, mesh=MESH[world], device=dev))
+    return out
+
+
+def tiny_resnet_state():
+    """Random weights of the tiny ResNet, BatchNorm scales away from the
+    zero init so every branch carries gradient."""
+    from horovod_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    model = ResNet(block_cls=BottleneckBlock, **cases.RESNET_CFG)
+    g = torch.Generator().manual_seed(12)
+    model.reset_parameters(g)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("scale"):
+                p.copy_(torch.rand(p.shape, generator=g) + 0.5)
+    return {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.cuda
+def test_nccl_collectives_world4_match_gloo(tmp_path):
+    cards(4)
+    nccl, gloo = both_backends(4, tmp_path, "collectives_more")
+    for rank, (got, want) in enumerate(zip(nccl, gloo)):
+        assert sorted(got) == sorted(want)
+        for key, w in want.items():
+            name = key.split("|")[0]
+            dtype = cases.MORE_CASES[name][1] if name in cases.MORE_CASES \
+                else "int32"
+            if dtype == "mixed":
+                dtype = cases.GROUPED_DTYPES[int(key.split("|")[2])]
+            np.testing.assert_allclose(got[key], w, rtol=TOL[dtype],
+                                       atol=TOL[dtype],
+                                       err_msg=f"{key} rank {rank}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_nccl_stateful_step_matches_gloo(world, tmp_path):
+    """SyncBatchNorm, one stateful step (hierarchical at world 4) and the
+    gathered eval logits agree with gloo; dropout masks (the card's
+    generator draws other numbers than the CPU's) differ across replicas
+    and repeat on a rerun."""
+    cards(world)
+    nccl, gloo = both_backends(world, tmp_path, "stateful",
+                               (tiny_resnet_state(), world == 4))
+    for rank, (got, want) in enumerate(zip(nccl, gloo)):
+        for key, w in want.items():
+            if key.startswith("mask"):
+                continue
+            kind = key.split("/")[0]
+            tol = {"param": PARAM, "momentum": GRAD}.get(kind, FWD)
+            if kind == "bn" and key.endswith(("/dx", "/dscale", "/dbias")):
+                tol = GRAD
+            np.testing.assert_allclose(got[key], w, err_msg=f"{key} {rank}",
+                                       **tol)
+        np.testing.assert_array_equal(got["mask0"], got["mask1"])
+    assert not np.array_equal(nccl[0]["mask0"], nccl[1]["mask0"])

@@ -156,14 +156,24 @@ def test_aux_leaves_are_synced_and_unported_options_raise():
     hvd.init(device="cpu")
     try:
         opt = torch.optim.SGD(model.parameters(), lr=0.1)
+        before_weight = model.weight.detach().clone()
+        before_bias = model.bias.detach().clone()
         out = dp.make_train_step(model, loss_fn, opt, device="cpu")(
             torch.ones(4, 3))
         assert out.aux["count"].item() == 5 and out.aux["tag"] == "x"
         torch.testing.assert_close(out.aux["mean"], out.loss)
         for kw in (dict(sharded_update=True), dict(bucket_bytes=1 << 20),
-                   dict(hierarchical=True), dict(op=hvd.Op.ADASUM)):
+                   dict(op=hvd.Op.ADASUM)):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 dp.make_train_step(model, loss_fn, opt, device="cpu", **kw)
+        # the two-level allreduce is ported: at world 1 it is the identity
+        flat = out.loss
+        with torch.no_grad():
+            model.weight.copy_(before_weight)
+            model.bias.copy_(before_bias)
+        out = dp.make_train_step(model, loss_fn, opt, device="cpu",
+                                 hierarchical=True)(torch.ones(4, 3))
+        torch.testing.assert_close(out.loss, flat)
         assert dp.shard_batch(torch.arange(6), rank=1, size=3).tolist() == \
             [2, 3]
         with pytest.raises(ValueError, match="divisible"):

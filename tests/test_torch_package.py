@@ -26,7 +26,8 @@ def test_import_loads_no_jax_or_reference_module():
         "import json, sys\n"
         "import horovod_tpu_torch, horovod_tpu_torch.parallel.dp, "
         "horovod_tpu_torch.models.convert, horovod_tpu_torch.models.gpt, "
-        "horovod_tpu_torch.ops._build\n"
+        "horovod_tpu_torch.models.resnet, horovod_tpu_torch.models.mnist, "
+        "horovod_tpu_torch.sync_batch_norm, horovod_tpu_torch.ops._build\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=PKG.parent, check=True)
