@@ -16,7 +16,8 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                must not spill;
 4. kernels   - each CUDA kernel against its plain PyTorch version on the
                same card tensors: the GPT-2-small shape (bf16, causal and
-               not) and small fp32/bf16 shapes with offsets, a fully-future
+               not), the BERT-Large shape (bf16, non-causal), and small
+               fp32/bf16 shapes with offsets, a fully-future
                block, Tq != Tk, ragged lengths, a single tile, one q tile
                against 1024 keys, rows with no visible key under 512-row
                reference tiles, and return_lse with a dlse cotangent, o
@@ -28,8 +29,9 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                logits and gradients;
 6. timing    - each kernel, its plain version and torch's
                scaled_dot_product_attention forward and backward (yardstick
-               only; the port never calls it) at the GPT-2-small shape,
-               beside the bound, each the median of 5 turns;
+               only; the port never calls it) beside the bound, each the
+               median of 5 turns: at the GPT-2-small shape (causal) and at
+               the BERT-Large shape (non-causal, all T^2 pairs);
 7. crossover - dense against flash attention, forward plus backward, over
                the key length (the routing threshold DEFAULT_FLASH_MIN_SEQ);
 8. train     - the main path: init() on NCCL, GptSmall (bf16 compute, fp32
@@ -39,10 +41,23 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                launched 12 times per step;
 9. collectives - every collective of parallel/collectives.py once on card
                tensors, on NCCL at world 1, in fp32, bf16 and int32, each
-               equal to its world-1 value; then SyncBatchNorm forward and
-               backward against the ResNet's plain BatchNorm on the same
-               tensors;
-10. resnet   - the second main path: init() on NCCL, ResNet50 (bf16
+               equal to its world-1 value (Adasum and a reversed axis tuple
+               included), the int8 quantized allreduce within its bound;
+               then SyncBatchNorm forward and backward against the
+               ResNet's plain BatchNorm on the same tensors;
+10. bert     - the third main path: init() on NCCL, BertLarge (bf16
+               compute, fp32 params, flash attention, non-causal) at seq
+               512 and batch 8, random tokens and labels from seed 0,
+               make_train_step with AdamW(1e-4), 5 steps under each option
+               set: fp16 wire; fp16 wire with 64 MiB buckets; ZeRO-1 with
+               the int8 wire and 64 MiB buckets. Before them, on one set of
+               gradients: bucketed equals fused bit for bit (fp32 and fp16
+               wire), int8 the same bits at 64 and 8 MiB buckets, Adasum of
+               one replica its input, and one ZeRO-1 step within rtol 1e-5
+               of one replicated step. In each set the loss must be finite
+               and fall and each kernel launch 24 times per step; with
+               buckets, some must be launched before the backward ends;
+11. resnet   - the second main path: init() on NCCL, ResNet50 (bf16
                compute, fp32 params and BatchNorm statistics) on 224x224x3
                NHWC images, 1000 classes, batch 128,
                make_stateful_train_step with SGD(lr=0.05, momentum=0.9), 5
@@ -51,11 +66,13 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                finite and fall and every running statistic must have moved
                and stay finite and fp32. It runs no flash kernel.
 
-Then the kernels line, the nvidia-smi line, and the final
+Then the kernels line (launches per path: gpt, bert, resnet), the
+nvidia-smi line, and the final
 ``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes the nvcc
-logs there; ``--profile`` adds one profiled GPT train step and one
-profiled ResNet-50 step (device time by kernel, device idle share) and,
-with ``--out``, their Chrome traces.
+logs there; ``--profile`` adds one profiled GPT train step, one profiled
+BERT-Large step per option set and one profiled ResNet-50 step (device
+time by kernel, device idle share) and, with ``--out``, their Chrome
+traces.
 """
 
 from __future__ import annotations
@@ -74,6 +91,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 MAIN = dict(b=8, t=1024, h=12, d=64)  # GPT-2 small, per-GPU batch 8
+BERT_SHAPE = dict(b=8, t=512, h=16, d=64)  # BERT-Large, per-GPU batch 8
 STEPS = 5
 REPLACES = {
     "flash_fwd": ("horovod_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -145,6 +163,9 @@ def tolerances(dtype):
 
 
 NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the kernel cases at the shapes the main paths give the kernels (GPT-2
+# small causal, BERT-Large non-causal): the kernels line's max_abs_err
+MAIN_PATH_CASES = ("main_bf16_causal", "bertlarge_bf16_full")
 
 
 def kernel_resources():
@@ -230,9 +251,13 @@ def kernel_cases():
     m = dict(b=MAIN["b"], tq=MAIN["t"], tk=MAIN["t"], h=MAIN["h"],
              d=MAIN["d"], bq=512, bk=512, dtype=bf16)
     small = dict(b=2, tq=256, tk=256, h=4, bq=128, bk=128)
+    bert = dict(b=BERT_SHAPE["b"], tq=BERT_SHAPE["t"], tk=BERT_SHAPE["t"],
+                h=BERT_SHAPE["h"], d=BERT_SHAPE["d"], bq=512, bk=512,
+                dtype=bf16)
     return [
         dict(name="main_bf16_causal", causal=True, **m),
         dict(name="main_bf16_full", causal=False, **m),
+        dict(name="bertlarge_bf16_full", causal=False, seed=17, **bert),
         dict(name="f32_d64_causal", d=64, causal=True, dtype=f32, **small),
         dict(name="f32_d64_full", d=64, causal=False, dtype=f32, **small),
         dict(name="f32_d128_lse_dlse", b=2, tq=128, tk=128, h=2, d=128,
@@ -325,13 +350,40 @@ def autograd_check(device):
 # timing
 
 
-def time_ms(fn, iters, warmup=3):
+_SLEEP_CYCLES_PER_MS = []
+
+
+def busy_wait_card(ms: float) -> None:
+    """Enqueue a kernel that keeps the card busy for about ``ms``."""
     import torch
+    if not _SLEEP_CYCLES_PER_MS:
+        # the first launch loads the kernel: keep that out of the reading
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10 ** 7 / start.elapsed_time(end))
+    torch.cuda._sleep(int(ms * _SLEEP_CYCLES_PER_MS[0]))
+
+
+def time_ms(fn, iters, warmup=3):
+    """Card time of one ``fn`` call: events around ``iters`` calls, after a
+    busy-wait kernel that lasts twice as long as the host takes to enqueue
+    them (read from the warm-up), so that the events time the card's work
+    and not the host's launch rate."""
+    import torch
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / warmup
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    busy_wait_card(min(2 * host_ms * iters + 1.0, 1000.0))
     start.record()
     for _ in range(iters):
         fn()
@@ -367,18 +419,18 @@ def bounds(b, t, h, d, causal, dtype_name):
 TURNS = 5  # every reported time is the median of this many turns
 
 
-def timing(device):
-    """Each kernel, its plain version and the SDPA yardstick at the main
-    shape. Kernel and plain version alternate turn by turn; each time is
+def timing(device, shape=MAIN, causal=True):
+    """Each kernel, its plain version and the SDPA yardstick at ``shape``
+    (bf16). Kernel and plain version alternate turn by turn; each time is
     the median of TURNS turns (a kernel turn is 50 launches)."""
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
-    case = dict(name="timing", causal=True, b=MAIN["b"], tq=MAIN["t"],
-                tk=MAIN["t"], h=MAIN["h"], d=MAIN["d"], bq=512, bk=512,
+    case = dict(name="timing", causal=causal, b=shape["b"], tq=shape["t"],
+                tk=shape["t"], h=shape["h"], d=shape["d"], bq=512, bk=512,
                 dtype=torch.bfloat16)
     q, k, v, do, dlse = kernel_inputs(case, device)
-    args = (True, MAIN["d"] ** -0.5, 0.0, 0.0, 512, 512)
+    args = (causal, shape["d"] ** -0.5, 0.0, 0.0, 512, 512)
     o, lse = fa.flash_fwd(q, k, v, *args)
     corr = (dlse - (do.float() * o.float()).sum(-1).transpose(1, 2)) \
         .contiguous()
@@ -405,11 +457,11 @@ def timing(device):
     # its backward alone is autograd.grad on a retained graph
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
     fwd_t, bwd_t = [], []
     for _ in range(TURNS):
         fwd_t.append(time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), 50))
+            qh, kh, vh, is_causal=causal), 50))
         bwd_t.append(time_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), doh, retain_graph=True), 50))
     sdpa_fwd, sdpa_bwd = statistics.median(fwd_t), statistics.median(bwd_t)
@@ -418,13 +470,14 @@ def timing(device):
     res["flash_fwd"].update(library_ms=sdpa_fwd, library_ms_joint=None)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         res[name].update(library_ms=None, library_ms_joint=sdpa_bwd)
-    bnd = bounds(MAIN["b"], MAIN["t"], MAIN["h"], MAIN["d"], True,
+    bnd = bounds(shape["b"], shape["t"], shape["h"], shape["d"], causal,
                  "bfloat16")
     for name, (ms, by, nbytes, flops) in bnd.items():
         res[name].update(bound_ms=ms, bound_by=by, bytes=nbytes,
                          flops=flops, share_of_bound=ms / res[name]["ms"])
     return res, {"sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
-                 "sdpa_fwd_ms_turns": fwd_t, "sdpa_bwd_ms_turns": bwd_t}
+                 "sdpa_fwd_ms_turns": fwd_t, "sdpa_bwd_ms_turns": bwd_t,
+                 "busy_wait_cycles_per_ms": _SLEEP_CYCLES_PER_MS[0]}
 
 
 CROSSOVER_T = (256, 512, 1024, 2048)
@@ -621,15 +674,16 @@ def train(device, profile_dir=None, profile=False):
 
 def collectives_check(device):
     """Every collective at world 1 on NCCL, each equal to its world-1
-    value (exactly: one replica's sum, product, gather or exchange is its
-    own input), in fp32, bf16 and int32; then SyncBatchNorm against the
+    value (exactly: one replica's sum, product, gather, exchange or Adasum
+    is its own input), in fp32, bf16 and int32, and the int8 quantized
+    allreduce within its bound; then SyncBatchNorm against the
     ResNet's BatchNorm (both with flax's momentum) on the same card
     tensors, forward and backward."""
     import torch
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.parallel import collectives as c
     hvd.init()
-    checked = []
+    checked, quant_err = [], {}
     try:
         g = torch.Generator().manual_seed(5)
         for dt in (torch.float32, torch.bfloat16, torch.int32):
@@ -656,19 +710,35 @@ def collectives_check(device):
             ]
             pairs += [("allgather_fsdp", c.allgather(x, axis="fsdp"), x),
                       ("allgather_data_fsdp",
-                       c.allgather(x, axis=("data", "fsdp")), x)]
+                       c.allgather(x, axis=("data", "fsdp")), x),
+                      ("allgather_fsdp_data",
+                       c.allgather(x, axis=("fsdp", "data")), x),
+                      # Adasum of one replica is its input (adasum.py)
+                      ("allreduce_adasum", c.allreduce(x, op=c.Adasum), x),
+                      ("grouped_allreduce_adasum",
+                       c.grouped_allreduce([x, x[0]], op=c.Adasum)[1], x[0]),
+                      ("allreduce_async",
+                       c.allreduce(x, op=c.Sum, async_op=True).wait(), x)]
             for name, got, want in pairs:
                 if got.dtype != want.dtype or got.device != x.device or \
                         not bool(torch.equal(got, want)):
                     raise AssertionError(f"collectives: {name} {dt} differs "
                                          "from its world-1 value")
                 checked.append(f"{name}/{str(dt)[6:]}")
+            if dt.is_floating_point:
+                # two int8 round trips: within the reference's bound of
+                # 2 max|x| / 127 (test_zero_sharding.py:165-185)
+                got = c.quantized_allreduce(x, axis=("data", "fsdp"))
+                quant_err[str(dt)[6:]] = close(
+                    f"collectives: quantized_allreduce {dt}", got, x, 0.0,
+                    2 * float(x.float().abs().max()) / 127)[0]
             c.barrier()
         bn_err = sync_bn_check(device)
     finally:
         hvd.shutdown()
     return {"phase": "collectives", "backend": "nccl", "world_size": 1,
             "checked": len(checked), "cases": checked,
+            "quantized_allreduce_max_abs_err": quant_err,
             "sync_batch_norm_max_rel_err": bn_err}
 
 
@@ -707,6 +777,240 @@ def sync_bn_check(device):
         errs[key] = close(f"sync_batch_norm/{key}", got, want, 0.0,
                           1e-5 * scale_of, norm_tol=1e-5)[0] / scale_of
     return errs
+
+
+# ---------------------------------------------------------------------------
+# the BERT-Large path (BASELINE config 3: BERT-Large pretraining with tensor
+# fusion and fp16 gradient compression), at seq 512 as in phase-2 pretraining
+
+BERT = dict(batch=BERT_SHAPE["b"], seq=BERT_SHAPE["t"], vocab=30522,
+            lr=1e-4, weight_decay=1e-4,  # optax.adamw(1e-4), bench.py:230
+            bucket_bytes=64 << 20,  # HOROVOD_FUSION_THRESHOLD's default
+            small_bucket_bytes=8 << 20)
+# option set -> make_train_step options
+BERT_SETS = (
+    ("fp16", dict(compression="fp16")),
+    ("fp16_bucketed", dict(compression="fp16",
+                           bucket_bytes=BERT["bucket_bytes"])),
+    ("int8_zero1_bucketed", dict(compression="int8", sharded_update=True,
+                                 bucket_bytes=BERT["bucket_bytes"])),
+)
+
+
+def bert_model(state, device):
+    """BertLarge on ``device`` (bf16 compute, fp32 parameters, attention
+    on the flash kernels, non-causal) holding the weights ``state``."""
+    import torch
+    from horovod_tpu_torch.models import BertLarge
+    with torch.device(device):
+        model = BertLarge(dtype=torch.bfloat16, use_flash=True,
+                          max_len=BERT["seq"])
+    model.load_state_dict(state)
+    return model
+
+
+def bert_step(model, opts):
+    """make_train_step of ``model`` with AdamW and the options ``opts``
+    (the compression by name); a ZeRO-1 optimizer with sharded_update."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import mlm_loss
+    from horovod_tpu_torch.parallel import dp, zero
+    kw = dict(opts)
+    kw["compression"] = getattr(hvd.Compression,
+                                kw.get("compression", "none"))
+
+    def adamw(ps):
+        return torch.optim.AdamW(ps, lr=BERT["lr"],
+                                 weight_decay=BERT["weight_decay"])
+    if kw.get("sharded_update"):
+        opt = zero.sharded_optimizer(model, adamw,
+                                     bucket_bytes=kw.get("bucket_bytes", 0))
+    else:
+        opt = adamw(model.parameters())
+    return dp.make_train_step(model, mlm_loss, opt, **kw)
+
+
+def bert_exchange(model, grads, **opts):
+    """The gradient exchange of a train step with ``opts`` applied to
+    ``grads`` (one per parameter) without a backward: every unit is
+    launched in unit order, as after a backward in which no hook fired."""
+    step = bert_step(model, opts)
+    params = list(model.parameters())
+    for p, g in zip(params, grads):
+        p.grad = g
+    step.exchange.begin()
+    out = [None] * len(params)
+    for _, idxs, reduced in step.exchange.finish():
+        for i, r in zip(idxs, reduced):
+            out[i] = r
+    for p in params:
+        p.grad = None
+    return out
+
+
+def bert_grad_checks(state, batch, device):
+    """On one set of the first step's gradients: the bucketed exchange
+    equals the fused one bit for bit (fp32 and fp16 wire), int8 at two
+    bucket bounds gives the same bits, and Adasum of one replica is its
+    input; then one ZeRO-1 step (no compression) against one replicated
+    step from the same weights, within rtol 1e-5, and one step with 64 MiB
+    buckets launched from the gradient hooks against one unbucketed step
+    (fp16 wire), bit for bit when the backward is deterministic."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import mlm_loss
+    model = bert_model(state, device)
+    runs = []
+    for _ in range(2):  # twice: is the backward deterministic?
+        model.zero_grad(set_to_none=True)
+        mlm_loss(model, batch)[0].backward()
+        runs.append([p.grad for p in model.parameters()])
+        model.zero_grad(set_to_none=True)
+    grads = runs[0]
+    deterministic = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs
+    res = {"backward_deterministic": deterministic}
+
+    def same_bits(name, a, b):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"bert: {name} differ")
+        res[name] = True
+    big, small = BERT["bucket_bytes"], BERT["small_bucket_bytes"]
+    for wire in ("none", "fp16"):
+        same_bits(f"bucketed_equals_fused_{wire}",
+                  bert_exchange(model, grads, compression=wire),
+                  bert_exchange(model, grads, compression=wire,
+                                bucket_bytes=big))
+    int8 = bert_exchange(model, grads, compression="int8", bucket_bytes=big)
+    same_bits("int8_same_bits_64mib_8mib", int8,
+              bert_exchange(model, grads, compression="int8",
+                            bucket_bytes=small))
+    res["int8_max_abs_err"] = max(float((a - g).abs().max())
+                                  for a, g in zip(int8, grads))
+    del int8
+    same_bits("adasum_is_the_identity",
+              bert_exchange(model, grads, op=hvd.Adasum), grads)
+    del grads, model
+    torch.cuda.empty_cache()
+    stepped, early = {}, {}
+    for name, opts in (("replicated", {}),
+                       ("zero1", dict(sharded_update=True)),
+                       ("fp16", dict(compression="fp16")),
+                       ("fp16_bucketed", dict(compression="fp16",
+                                              bucket_bytes=big))):
+        model = bert_model(state, device)
+        step = bert_step(model, opts)
+        step(batch).loss.item()
+        early[name] = step.exchange.early_launches
+        stepped[name] = {n: p.detach().cpu()
+                         for n, p in model.named_parameters()}
+        del model, step
+        torch.cuda.empty_cache()
+    res["zero1_vs_replicated_max_abs_err"] = max(
+        close(f"bert: zero1 vs replicated {n}", stepped["zero1"][n], want,
+              1e-5, 1e-7)[0] for n, want in stepped["replicated"].items())
+    # one real step with the buckets launched from the gradient hooks
+    # against the unbucketed step from the same weights
+    if not early["fp16_bucketed"] > 0:
+        raise AssertionError("bert: the hook-driven step launched no bucket "
+                             "before the backward ended")
+    if deterministic:
+        same_bits("hook_driven_step_equals_fused_fp16",
+                  list(stepped["fp16_bucketed"].values()),
+                  list(stepped["fp16"].values()))
+    return res
+
+
+def bert(device, profile_dir=None, profile=False):
+    """The third main path: BERT-Large at seq 512 through init() on NCCL
+    and make_train_step, STEPS steps under each option set of BERT_SETS
+    from the same weights, after the gradient checks."""
+    import gc
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import BertLarge
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import dp
+    hvd.init()
+    lines, profs, path_counts = [], [], {k: 0 for k in NAMES}
+    try:
+        base = BertLarge(dtype=torch.bfloat16, max_len=BERT["seq"])
+        base.reset_parameters(torch.Generator().manual_seed(0))
+        state = base.state_dict()
+        n_params = sum(p.numel() for p in base.parameters())
+        layers = len(base.blocks)
+        del base
+        n, t = BERT["batch"] * hvd.size(), BERT["seq"]
+        rs = np.random.RandomState(0)
+        batch = dp.shard_batch({k: torch.tensor(rs.randint(
+            0, BERT["vocab"], (n, t))) for k in ("tokens", "labels")})
+        batch = {k: v.to(hvd.device()) for k, v in batch.items()}
+        checks = bert_grad_checks(state, batch, device)
+        for name, opts in BERT_SETS:
+            model = bert_model(state, device)
+            step = bert_step(model, opts)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+            losses, step_ms = [], []
+            for _ in range(STEPS):
+                t0 = time.perf_counter()
+                out = step(batch)
+                losses.append(out.loss.item())  # waits for the step
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = fa.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            early = step.exchange.early_launches
+            units = len(step.exchange.units)
+            if profile:
+                profs.append(dict(profile_step(step, batch, profile_dir,
+                                               f"bert_{name}.json"),
+                                  model="BertLarge", option_set=name))
+            del model, step, out
+            gc.collect()
+            torch.cuda.empty_cache()
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"bert {name}: non-finite loss {losses}")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"bert {name}: loss did not fall "
+                                     f"{losses}")
+            want = layers * STEPS
+            if counts != {k: want for k in counts}:
+                raise AssertionError(f"bert {name}: launches {counts}, want "
+                                     f"{want} each")
+            if opts.get("bucket_bytes") and not early > 0:
+                raise AssertionError(f"bert {name}: no bucket launched "
+                                     "before the backward ended")
+            for k in NAMES:
+                path_counts[k] += counts[k]
+            steady = step_ms[1:]
+            mean_ms = sum(steady) / len(steady)
+            lines.append({
+                "phase": "bert", "option_set": name, "options": opts,
+                "model": "BertLarge", "params": n_params,
+                "batch": BERT["batch"], "seq": t, "dtype": "bfloat16",
+                "param_dtype": "float32",
+                "optimizer": f"AdamW(lr={BERT['lr']}, "
+                             f"weight_decay={BERT['weight_decay']})",
+                "steps": STEPS, "losses": losses, "step_ms": step_ms,
+                "steady_step_ms": mean_ms,
+                "tokens_per_s": BERT["batch"] * t / (mean_ms / 1e3),
+                "peak_mem_bytes": peak, "launches": counts,
+                "buckets": units,
+                "buckets_launched_before_backward_end": early,
+                "backend": "nccl", "world_size": 1})
+        lines[0].update(checks)
+        same = lines[1]["losses"] == lines[0]["losses"]
+        lines[1]["losses_equal_to_fused"] = same
+        if checks["backward_deterministic"] and not same:
+            raise AssertionError(
+                f"bert: the bucketed set's losses {lines[1]['losses']} are "
+                f"not the fused set's {lines[0]['losses']}")
+    finally:
+        hvd.shutdown()
+    return path_counts, lines, profs
 
 
 RESNET = dict(batch=128, image=224, classes=1000, lr=0.05, momentum=0.9)
@@ -779,7 +1083,7 @@ def resnet(device, profile_dir=None, profile=False):
     if mean_ms < bound_ms:
         raise AssertionError(f"resnet: {mean_ms} ms per step is below the "
                              f"{bound_ms} ms bound: the timing did not wait")
-    return prof, {
+    return counts, prof, {
         "phase": "resnet", "model": "ResNet50", "params": n_params,
         "batch": RESNET["batch"], "image": [RESNET["image"]] * 2 + [3],
         "layout": "NHWC", "dtype": "bfloat16", "param_dtype": "float32",
@@ -836,8 +1140,9 @@ def main() -> int:
         emit({"phase": "kernels", "case": case["name"], "max_abs_err": errs,
               "normwise_err": norms,
               "tolerance_rtol_atol_rowatol_norm": tols})
-        if case["name"] == "main_bf16_causal":
-            max_err = errs
+        if case["name"] in MAIN_PATH_CASES:
+            for k, e in errs.items():
+                max_err[k] = max(max_err.get(k, 0.0), e)
     emit({"phase": "kernels", "case": "autograd_f32",
           "max_abs_err": autograd_check(device)})
 
@@ -846,15 +1151,23 @@ def main() -> int:
     times, sdpa = timing(device)
     emit({"phase": "timing", "shape": MAIN, "dtype": "bfloat16",
           "causal": True, "kernels": times, **sdpa})
+    bert_times, bert_sdpa = timing(device, BERT_SHAPE, causal=False)
+    emit({"phase": "timing", "shape": BERT_SHAPE, "dtype": "bfloat16",
+          "causal": False, "kernels": bert_times, **bert_sdpa})
     emit(crossover(device))
 
-    counts, prof, train_line = train(device, opts.out, opts.profile)
+    counts = {}
+    counts["gpt"], prof, train_line = train(device, opts.out, opts.profile)
     emit(train_line)
     if prof is not None:
         emit(prof)
 
     emit(collectives_check(device))
-    prof, resnet_line = resnet(device, opts.out, opts.profile)
+    counts["bert"], bert_lines, profs = bert(device, opts.out, opts.profile)
+    for line in bert_lines + profs:
+        emit(line)
+    counts["resnet"], prof, resnet_line = resnet(device, opts.out,
+                                                 opts.profile)
     emit(resnet_line)
     if prof is not None:
         emit(dict(prof, model="ResNet50"))
@@ -862,15 +1175,21 @@ def main() -> int:
     kernels = []
     for name in NAMES:
         src, replaces = REPLACES[name]
-        t = times[name]
+        t, tb = times[name], bert_times[name]
         res = resources[f"{name}/bfloat16/d{MAIN['d']}"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces,
+            "launches": sum(c[name] for c in counts.values()),
+            "launches_by_path": {path: c[name]
+                                 for path, c in counts.items()},
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library_ms_joint": t["library_ms_joint"],
+            "bert_shape": {k: tb[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_ms_joint")},
             "registers": res["registers"], "smem_bytes": res["smem_bytes"],
             "blocks_per_sm": res["blocks_per_sm"]})
     emit({"kernels": kernels})

@@ -9,10 +9,11 @@ from horovod_tpu_torch.common.basics import (cross_rank, cross_size, device,
                                              init, is_initialized,
                                              local_rank, local_size, rank,
                                              shutdown, size)
-from horovod_tpu_torch.common.reduce_ops import (Average, Max, Min, Op,
-                                                 Product, Sum)
+from horovod_tpu_torch.common.reduce_ops import (Adasum, Average, Max, Min,
+                                                 Op, Product, Sum)
 from horovod_tpu_torch.compression import Compression
 
 __all__ = ["init", "shutdown", "is_initialized", "rank", "size",
            "local_rank", "local_size", "cross_rank", "cross_size", "device",
-           "Op", "Average", "Sum", "Min", "Max", "Product", "Compression"]
+           "Op", "Average", "Sum", "Min", "Max", "Product", "Adasum",
+           "Compression"]

@@ -24,7 +24,8 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common.env import env_int
-from horovod_tpu_torch.parallel.mesh import MeshSpec, replica_groups
+from horovod_tpu_torch.parallel.mesh import (AXIS_ORDER, MeshSpec, axis_index,
+                                             replica_groups)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,9 +53,10 @@ class _Context:
         self.cross_rank = 0
         self.cross_size = 1
         self.device: Optional[torch.device] = None
-        # replica axes -> (process group, None for the whole world; the
-        # group's global ranks in axis index order)
+        # replica axes in AXIS_ORDER -> (process group, None for the whole
+        # world; the group's global ranks in ascending order)
         self.groups: dict = {}
+        self.sizes: dict = {}  # axis -> size
 
     def init(self, device=None, mesh_spec: Optional[MeshSpec] = None,
              store: Optional[dist.Store] = None,
@@ -83,6 +85,7 @@ class _Context:
             self.cross_rank = env_int("HOROVOD_CROSS_RANK", rank)
             self.cross_size = env_int("HOROVOD_CROSS_SIZE", size)
             self.groups = _axis_groups(sizes, rank)
+            self.sizes = sizes
             self.device = dev
             self.initialized = True
 
@@ -94,6 +97,7 @@ class _Context:
             self.initialized = False
             self.device = None
             self.groups = {}
+            self.sizes = {}
 
 
 def _axis_groups(sizes: dict, rank: int) -> dict:
@@ -182,11 +186,17 @@ def cross_size() -> int:
 
 def axis_group(axes: Tuple[str, ...]) -> Tuple[Optional[dist.ProcessGroup],
                                                List[int]]:
-    """The process group of replica axes ``axes`` (a tuple in
-    ``AXIS_ORDER`` order) that holds this rank, ``None`` for the whole
-    world, and its global ranks in axis index order."""
+    """The process group of replica axes ``axes`` (each named once, in
+    any order) that holds this rank, ``None`` for the whole world, and its
+    global ranks in axis index order: row-major over ``axes`` in the order
+    given, as ``lax.axis_index`` of a tuple. The group is the same set of
+    ranks whatever the order; only the order of the list changes."""
     _require_init()
-    return _ctx.groups[axes]
+    canonical = tuple(sorted(axes, key=AXIS_ORDER.index))
+    group, ranks = _ctx.groups[canonical]
+    if axes != canonical:
+        ranks = sorted(ranks, key=lambda r: axis_index(_ctx.sizes, r, axes))
+    return group, ranks
 
 
 def device() -> torch.device:

@@ -22,6 +22,10 @@ REGISTRY = {
     "HOROVOD_HIERARCHICAL_ALLREDUCE": (
         False, "two-level gradient allreduce: reduce-scatter over fsdp, "
                "allreduce over data, all-gather over fsdp"),
+    "HOROVOD_BUCKET_BYTES": (
+        0, "bound in bytes of one gradient bucket of the train step's "
+           "exchange, launched while the backward runs (0: one exchange "
+           "after the backward)"),
     "HOROVOD_FLASH_MIN_SEQ": (
         256, "key length from which attention routes to the flash kernels "
              "(the crossover measured on an H100)"),

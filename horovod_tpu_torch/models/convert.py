@@ -1,7 +1,9 @@
 """Map flax parameter trees onto the port's modules.
 
 ``from_flax_params(tree)`` takes the ``params`` tree of the reference's
-``GptDecoder`` (``horovod_tpu/models/gpt.py``), ``from_flax_resnet(params,
+``GptDecoder`` (``horovod_tpu/models/gpt.py``), ``from_flax_bert(tree)``
+that of its ``BertEncoder`` (``models/transformer.py``),
+``from_flax_resnet(params,
 batch_stats)`` those of its ``ResNet`` family (``models/resnet.py``, running
 statistics included) and ``from_flax_mnist(params)`` those of its
 ``MnistConvNet``, as nested dicts of numpy arrays, and return a
@@ -128,20 +130,16 @@ def from_flax_mnist(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def from_flax_params(tree) -> Dict[str, torch.Tensor]:
-    """flax GptDecoder params -> the port's GptDecoder ``state_dict``."""
-    src = _Tree(tree)
+def _blocks(src: _Tree, tree, sd: Dict[str, torch.Tensor]) -> None:
+    """Map every ``EncoderBlock_i`` of ``tree`` onto ``blocks.i``."""
     blocks = sorted(int(m.group(1)) for k in tree
                     if (m := _BLOCK.match(k)))
     if blocks != list(range(len(blocks))):
         raise KeyError(f"EncoderBlock indices are not 0..n-1: {blocks}")
-    sd = {"embed": _t(src.take("Embed_0", "embedding")),
-          "pos_embed": _t(src.take("Embed_1", "embedding"))}
     for i in blocks:
         blk, out = f"EncoderBlock_{i}", f"blocks.{i}"
         for ln_src, ln_dst in (("LayerNorm_0", "ln0"), ("LayerNorm_1", "ln1")):
-            sd[f"{out}.{ln_dst}.weight"] = _t(src.take(blk, ln_src, "scale"))
-            sd[f"{out}.{ln_dst}.bias"] = _t(src.take(blk, ln_src, "bias"))
+            _layer_norm(src, (blk, ln_src), f"{out}.{ln_dst}", sd)
         attn = next((a for a in _ATTN if a in tree[blk]), _ATTN[0])
         for name in ("query", "key", "value"):
             kernel = src.take(blk, attn, name, "kernel")  # [d, h, hd]
@@ -158,7 +156,36 @@ def from_flax_params(tree) -> Dict[str, torch.Tensor]:
                 src.take(blk, dense_src, "kernel").T)
             sd[f"{out}.{dense_dst}.bias"] = _t(
                 src.take(blk, dense_src, "bias"))
-    sd["ln_f.weight"] = _t(src.take("LayerNorm_0", "scale"))
-    sd["ln_f.bias"] = _t(src.take("LayerNorm_0", "bias"))
+
+
+def _layer_norm(src: _Tree, path, out: str, sd) -> None:
+    sd[f"{out}.weight"] = _t(src.take(*path, "scale"))
+    sd[f"{out}.bias"] = _t(src.take(*path, "bias"))
+
+
+def from_flax_params(tree) -> Dict[str, torch.Tensor]:
+    """flax GptDecoder params -> the port's GptDecoder ``state_dict``. The
+    final LayerNorm is ``LayerNorm_0``."""
+    src = _Tree(tree)
+    sd = {"embed": _t(src.take("Embed_0", "embedding")),
+          "pos_embed": _t(src.take("Embed_1", "embedding"))}
+    _blocks(src, tree, sd)
+    _layer_norm(src, ("LayerNorm_0",), "ln_f", sd)
+    _check_consumed(src)
+    return sd
+
+
+def from_flax_bert(tree) -> Dict[str, torch.Tensor]:
+    """flax BertEncoder params -> the port's BertEncoder ``state_dict``.
+    BERT's embedding LayerNorm comes first, so flax names it
+    ``LayerNorm_0`` and the final one ``LayerNorm_1`` (GPT's final one is
+    ``LayerNorm_0``)."""
+    src = _Tree(tree)
+    sd = {"embed": _t(src.take("Embed_0", "embedding")),
+          "pos_embed": _t(src.take("Embed_1", "embedding"))}
+    _layer_norm(src, ("LayerNorm_0",), "ln_embed", sd)
+    _blocks(src, tree, sd)
+    _layer_norm(src, ("LayerNorm_1",), "ln_f", sd)
+    sd["lm_bias"] = _t(src.take("lm_bias"))
     _check_consumed(src)
     return sd

@@ -13,8 +13,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from horovod_tpu_torch.models.transformer import (Dense, EncoderBlock,
-                                                  LayerNorm)
+from horovod_tpu_torch.models.transformer import (EncoderBlock, LayerNorm,
+                                                  embed_normal_,
+                                                  reset_blocks_)
 
 
 class GptDecoder(nn.Module):
@@ -34,21 +35,12 @@ class GptDecoder(nn.Module):
         self.ln_f = LayerNorm(hidden, dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Random weights from ``generator``: N(0, 0.02) embeddings,
-        LeCun-normal Dense kernels (flax's default), zero biases, unit
-        LayerNorm scales."""
-        with torch.no_grad():
-            self.embed.normal_(0.0, 0.02, generator=generator)
-            self.pos_embed.normal_(0.0, 0.02, generator=generator)
-            for mod in self.modules():
-                if isinstance(mod, Dense):
-                    fan_in = mod.weight.shape[1]
-                    mod.weight.normal_(0.0, fan_in ** -0.5,
-                                       generator=generator)
-                    mod.bias.zero_()
-                elif isinstance(mod, LayerNorm):
-                    mod.weight.fill_(1.0)
-                    mod.bias.zero_()
+        """flax's initializers from ``generator``: embeddings N(0,
+        1/hidden), lecun-normal (truncated) Dense kernels, zero biases,
+        unit LayerNorm scales."""
+        embed_normal_(self.embed, generator)
+        embed_normal_(self.pos_embed, generator)
+        reset_blocks_(self, generator)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         t = tokens.shape[1]

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from horovod_tpu_torch.models.transformer import Dense
+from horovod_tpu_torch.models.transformer import Dense, lecun_normal_
 
 
 class MnistConvNet(nn.Module):
@@ -34,13 +34,12 @@ class MnistConvNet(nn.Module):
         self.dense1 = Dense(50, num_classes, dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """LeCun-normal kernels (std fan_in^-1/2, flax's default scale) and
-        zero biases, from ``generator``."""
+        """flax's initializers from ``generator``: lecun-normal (truncated)
+        kernels, fan_in ``kh * kw * cin`` for the convolutions, and zero
+        biases."""
         with torch.no_grad():
             for mod in (self.conv0, self.conv1, self.dense0, self.dense1):
-                w = mod.weight
-                w.copy_(torch.randn(w.shape, generator=generator)
-                        * w[0].numel() ** -0.5)
+                lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
                 mod.bias.zero_()
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

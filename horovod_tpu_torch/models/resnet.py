@@ -38,7 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from horovod_tpu_torch.models.transformer import Dense
+from horovod_tpu_torch.models.transformer import Dense, lecun_normal_
 
 
 def pad_channels_to_multiple(x: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -217,17 +217,15 @@ class ResNet(nn.Module):
             p.data = p.data.to(param_dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Random weights from ``generator``: LeCun-normal conv and Dense
-        kernels (std fan_in^-1/2, flax's default scale), zero Dense bias,
-        BatchNorm scale one (zero for the last of each block), bias zero,
-        running mean zero and var one."""
+        """flax's initializers from ``generator``: lecun-normal
+        (truncated) conv and Dense kernels, fan_in ``kh * kw * cin`` and
+        ``in``, zero Dense bias, BatchNorm scale one (zero for the last of
+        each block), bias zero, running mean zero and var one."""
         with torch.no_grad():
             for mod in self.modules():
                 if isinstance(mod, (Conv, Dense)):
-                    w = mod.weight
-                    fan_in = w[0].numel()
-                    w.copy_(torch.randn(w.shape, generator=generator)
-                            * fan_in ** -0.5)
+                    lecun_normal_(mod.weight, mod.weight[0].numel(),
+                                  generator)
                     if isinstance(mod, Dense):
                         mod.bias.zero_()
                 elif isinstance(mod, BatchNorm):

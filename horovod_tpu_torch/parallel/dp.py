@@ -2,22 +2,29 @@
 
 Counterpart of ``horovod_tpu/parallel/dp.py`` (``make_train_step``,
 ``make_stateful_train_step``, ``make_eval_step``, ``replicate``,
-``shard_batch``). One step runs forward and backward, the gradient allreduce
-over the replica axes ``("data", "fsdp")`` fused per dtype
-(``ops.fusion.fused_apply``; Average with fp32 accumulation unless
-compression sets the wire dtype; with ``hierarchical`` a reduce-scatter over
-``fsdp``, an allreduce over ``data`` and an all-gather over ``fsdp``), and
-the optimizer update. The reference compiles the step into one XLA program
-over a mesh; the port runs eagerly, one process per GPU, and reduces over the
-``torch.distributed`` process groups created by ``init()``. Parameters,
-non-gradient model state (floating buffers such as BatchNorm running
-statistics) and optimizer state live in the model and the ``torch.optim``
-optimizer and are updated in place.
+``shard_batch``). One step runs forward and backward, the gradient exchange
+over the replica axes ``("data", "fsdp")`` and the optimizer update. The
+exchange fuses the gradients per dtype, or per (bucket, dtype) with a
+bucket bound, and reduces each fusion: an allreduce (Average with fp32
+accumulation unless compression sets the wire dtype; with ``hierarchical``
+a reduce-scatter over ``fsdp``, an allreduce over ``data`` and an
+all-gather over ``fsdp``), the int8 quantized allreduce, Adasum, or with
+``sharded_update`` the ZeRO-1 reduce-scatter, shard update and all-gather
+(``parallel/zero.py``). The reference compiles the step into one XLA
+program over a mesh and overlaps by dependency structure; the port runs
+eagerly, one process per GPU, reduces over the ``torch.distributed``
+process groups created by ``init()``, and overlaps for real: with a bucket
+bound each bucket's collectives are launched from the gradient hooks while
+the backward still runs. Parameters, non-gradient model state (floating
+buffers such as BatchNorm running statistics) and optimizer state live in
+the model and the ``torch.optim`` optimizer and are updated in place.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
+import weakref
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -28,7 +35,10 @@ from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.env import env_bool
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.ops.fusion import fused_apply, map_tree
-from horovod_tpu_torch.parallel import collectives
+from horovod_tpu_torch.parallel import collectives, zero
+from horovod_tpu_torch.parallel.bucketing import (fuse, plan_units,
+                                                  resolve_bucket_bytes,
+                                                  unfuse)
 from horovod_tpu_torch.parallel.collectives import Average, Op
 from horovod_tpu_torch.parallel.mesh import REPLICA_AXES
 
@@ -56,27 +66,243 @@ def _resolve_hierarchical(hierarchical: Optional[bool]) -> bool:
     return bool(hierarchical)
 
 
-def _make_grad_allreduce(op, compression, prescale_factor, postscale_factor,
-                         hierarchical):
-    """Reduce a list of gradients over the replica axes, fused per dtype
-    (reference dp.py:127-144). With compression the allreduce runs in the
-    wire dtype, without fp32 accumulation."""
-    def red(g):
-        ctx = None
-        if compression is not None:
-            g, ctx = compression.compress(g)
-        kwargs = dict(op=op, prescale_factor=prescale_factor,
-                      postscale_factor=postscale_factor,
-                      accumulate_in_fp32=compression is None)
-        if hierarchical:
-            out = collectives.hierarchical_allreduce(
-                g, outer_axis=DP_AXES[0], inner_axis=DP_AXES[1:], **kwargs)
+class _Exchange:
+    """The gradient exchange of a train step over units of parameters (one
+    per dtype, or per (bucket, dtype) with a bucket bound), each reduced by
+    ``start(unit, grads) -> Pending``.
+
+    With ``overlap`` a post-accumulate-grad hook on every parameter counts
+    the unit's gradients in, and a unit is launched (its collectives issued
+    with ``async_op=True``) once all of its gradients have accumulated and
+    every earlier unit has been launched: units go out in the same order
+    on every replica, as the collectives need. A tied weight accumulates
+    once, after all of its uses. Units whose parameters got no gradient
+    never fill; ``finish()`` launches whatever is left, in unit order, then
+    waits on every unit. ``zero_fill`` gives a parameter without a gradient
+    a zero one (the sharded layout is fixed); otherwise it is left out."""
+
+    def __init__(self, params, units, start, overlap: bool,
+                 zero_fill: bool = False):
+        self.params, self.units, self._start = params, units, start
+        self._zero_fill = zero_fill
+        self._active = False
+        # units launched before the last gradient hook of the last backward
+        self.early_launches = 0
+        if overlap:
+            # the hooks hold the exchange weakly and go with it
+            me = weakref.ref(self)
+            handles = [params[i].register_post_accumulate_grad_hook(
+                functools.partial(_on_grad, me, u))
+                for u, idxs in enumerate(units) for i in idxs]
+            weakref.finalize(self, _remove_hooks, handles)
+
+    def begin(self) -> None:
+        """Arm the hooks for one backward."""
+        self._left = [len(idxs) for idxs in self.units]
+        self._pending: list = [None] * len(self.units)
+        self._next = 0
+        self.early_launches = 0
+        self._active = True
+
+    def on_grad(self, unit: int) -> None:
+        """One gradient of ``unit`` has accumulated."""
+        if not self._active:
+            return
+        self.early_launches = self._next
+        self._left[unit] -= 1
+        while self._next < len(self.units) and not self._left[self._next]:
+            self._launch(self._next)
+
+    def _launch(self, unit: int) -> None:
+        idxs = self.units[unit]
+        if self._zero_fill:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in (self.params[i] for i in idxs)]
         else:
-            out = collectives.allreduce(g, axis=DP_AXES, **kwargs)
-        if compression is not None:
-            out = compression.decompress(out, ctx)
-        return out
-    return lambda grads: fused_apply(red, grads)
+            idxs = [i for i in idxs if self.params[i].grad is not None]
+            grads = [self.params[i].grad for i in idxs]
+        if grads:
+            self._pending[unit] = (idxs, self._start(unit, grads))
+        self._next = unit + 1
+
+    def finish(self) -> list:
+        """``(unit, parameter positions, result)`` of every unit that had
+        gradients, in unit order, after waiting on each. The exchange then
+        holds none of the step's buffers."""
+        self._active = False
+        while self._next < len(self.units):
+            self._launch(self._next)
+        pending, self._pending = self._pending, []
+        return [(u, item[0], item[1].wait())
+                for u, item in enumerate(pending) if item is not None]
+
+
+def _on_grad(exchange_ref, unit: int, _param) -> None:
+    exchange = exchange_ref()
+    if exchange is not None:
+        exchange.on_grad(unit)
+
+
+def _remove_hooks(handles) -> None:
+    for handle in handles:
+        handle.remove()
+
+
+def _check_compression(compression):
+    """``Compression.none`` reads as None."""
+    return None if compression is Compression.none else compression
+
+
+def _replicated_reduce(op, compression, prescale_factor, postscale_factor,
+                       hierarchical, align):
+    """``start(unit, grads) -> Pending`` of the replicated path (reference
+    dp.py:84-144): the unit's gradients fused into one flat tensor and
+    allreduced over the replica axes, quantized (int8), two-level, or in
+    the compressor's wire dtype (without fp32 accumulation)."""
+    if op is collectives.Adasum:
+        # per-tensor coefficients, one fused pass; compression and buckets
+        # do not apply (reference dp.py:117-125)
+        def adasum(_unit, grads):
+            outs = collectives.grouped_allreduce(
+                grads, op=op, axis=DP_AXES, prescale_factor=prescale_factor,
+                postscale_factor=postscale_factor)
+            return collectives.Pending([], lambda: outs)
+        return adasum
+    quantized = getattr(compression, "quantized", False)
+
+    def start(_unit, grads):
+        shapes = [g.shape for g in grads]  # the gradients are not kept
+        flat = fuse(grads, align)
+        if quantized:
+            pending = collectives.quantized_allreduce(
+                flat, op=op, axis=DP_AXES, prescale_factor=prescale_factor,
+                postscale_factor=postscale_factor,
+                block_size=compression.block_size, async_op=True)
+        else:
+            ctx = None
+            if compression is not None:
+                flat, ctx = compression.compress(flat)
+            kwargs = dict(op=op, prescale_factor=prescale_factor,
+                          postscale_factor=postscale_factor,
+                          accumulate_in_fp32=compression is None,
+                          async_op=True)
+            if hierarchical:
+                pending = collectives.hierarchical_allreduce(
+                    flat, outer_axis=DP_AXES[0], inner_axis=DP_AXES[1:],
+                    **kwargs)
+            else:
+                pending = collectives.allreduce(flat, axis=DP_AXES, **kwargs)
+            if compression is not None:
+                pending = pending.then(
+                    lambda out: compression.decompress(out, ctx))
+        return pending.then(lambda out: unfuse(out, shapes, align))
+    return start
+
+
+class _ReplicatedUpdate:
+    """Allreduce the gradients, then ``optimizer.step()`` on every
+    replica."""
+
+    def __init__(self, optimizer, params, exchange):
+        self.optimizer, self.params, self.exchange = \
+            optimizer, params, exchange
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for _, idxs, grads in self.exchange.finish():
+            for i, g in zip(idxs, grads):
+                self.params[i].grad = g
+        self.optimizer.step()
+
+
+class _ShardedUpdate:
+    """ZeRO-1 (``parallel/zero.py``): reduce-scatter the gradients, update
+    this replica's shards, all-gather the updates into the parameters."""
+
+    def __init__(self, sopt, exchange, compression):
+        self.sopt, self.exchange, self.compression = \
+            sopt, exchange, compression
+
+    def zero_grad(self) -> None:
+        # the model's parameters are not the optimizer's
+        for p in self.sopt.params:
+            p.grad = None
+        self.sopt.optimizer.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        shard_grads = [g for _, _, g in self.exchange.finish()]
+        for p in self.sopt.params:
+            p.grad = None
+        zero.apply_sharded_update(self.sopt, shard_grads, self.compression)
+
+
+def _make_update(optimizer, params, op, compression, prescale_factor,
+                 postscale_factor, hierarchical, sharded_update,
+                 bucket_bytes):
+    """The gradient exchange and optimizer update of a step (reference
+    dp.py:46-144), with the reference's refusals of incompatible
+    options."""
+    quantized = getattr(compression, "quantized", False)
+    if sharded_update:
+        if op is collectives.Adasum:
+            raise ValueError("sharded_update is incompatible with Adasum — "
+                             "Adasum has no reduce-scatter form")
+        if hierarchical:
+            raise ValueError(
+                "sharded_update is incompatible with hierarchical allreduce "
+                "— the sharded pipeline already reduce-scatters over all "
+                "reduce axes; unset hierarchical= (or "
+                "HOROVOD_HIERARCHICAL_ALLREDUCE)")
+        zero.check_op(op)
+        if not isinstance(optimizer, zero.ShardedOptimizer):
+            raise ValueError("sharded_update=True needs the optimizer built "
+                             "by zero.sharded_optimizer(model, ...)")
+        if [id(p) for p in optimizer.params] != [id(p) for p in params]:
+            raise ValueError("the sharded optimizer was built over other "
+                             "parameters than the model's")
+        if optimizer.bucket_bytes != bucket_bytes:
+            raise ValueError(
+                f"the sharded optimizer was built with bucket_bytes="
+                f"{optimizer.bucket_bytes}, the step has {bucket_bytes}: "
+                "the shard layout depends on it")
+        if quantized and compression.block_size != optimizer.block_size:
+            raise ValueError("int8 block size differs from the sharded "
+                             "optimizer's")
+        start = functools.partial(
+            zero.reduce_scatter_grads, optimizer, op=op,
+            compression=compression, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor)
+        exchange = _Exchange(params, [g.indices for g in optimizer.groups],
+                             start, overlap=bucket_bytes > 0, zero_fill=True)
+        return _ShardedUpdate(optimizer, exchange, compression)
+    if isinstance(optimizer, zero.ShardedOptimizer):
+        raise ValueError("a zero.sharded_optimizer needs sharded_update=True")
+    if quantized:
+        if hierarchical:
+            raise ValueError(
+                "quantized compression is incompatible with hierarchical "
+                "allreduce — the quantized collective is already a "
+                "reduce-scatter/all-gather composition")
+        if op not in (Average, collectives.Sum):
+            raise ValueError(f"quantized_allreduce supports Sum/Average, "
+                             f"got {op}")
+    adasum = op is collectives.Adasum
+    bucketed = bucket_bytes > 0 and not adasum
+    # int8 buckets pad every tensor to whole blocks: the result is then the
+    # same bits for every bucket bound
+    units, align = plan_units(params, bucket_bytes if bucketed else 0,
+                              compression.block_size if quantized else 1)
+    start = _replicated_reduce(op, compression, prescale_factor,
+                               postscale_factor, hierarchical, align)
+    units = [u.indices for u in units]
+    if adasum:
+        units = [tuple(range(len(params)))] if params else []
+    exchange = _Exchange(params, units, start, overlap=bucketed)
+    return _ReplicatedUpdate(optimizer, params, exchange)
 
 
 def _sync_aux(aux):
@@ -107,28 +333,6 @@ def fold_in(seed: int, index: int) -> int:
     part ``jax.random.fold_in`` plays in the reference, dp.py:258)."""
     digest = hashlib.sha256(f"{int(seed)}/{int(index)}".encode()).digest()
     return int.from_bytes(digest[:8], "little") >> 1
-
-
-def _check_options(sharded_update, bucket_bytes, op, compression):
-    """Options the port does not have yet raise; returns the compression
-    with ``Compression.none`` read as ``None``."""
-    if sharded_update:
-        raise NotImplementedError("sharded_update (ZeRO-1) is not ported "
-                                  "yet; see ROADMAP.md queue A, 'int8 wire and "
-                                  "ZeRO-1'")
-    if bucket_bytes:
-        raise NotImplementedError("bucket_bytes (bucketed overlap) is not "
-                                  "ported yet; see ROADMAP.md queue A, "
-                                  "'Bucketed overlap'")
-    if op is collectives.Adasum:
-        raise NotImplementedError("Adasum is not ported yet; see ROADMAP.md "
-                                  "queue A, 'Remaining parallelism'")
-    if compression is Compression.none:
-        compression = None
-    if compression is not None and getattr(compression, "quantized", False):
-        raise NotImplementedError("int8 compression is not ported yet; see "
-                                  "ROADMAP.md queue A, 'int8 wire and ZeRO-1'")
-    return compression
 
 
 def _to_device(batch, device):
@@ -166,29 +370,21 @@ def _place(model, device) -> None:
     model.to(device)
 
 
-def _prepare(model, loss_fn, device, remat, op, compression,
+def _prepare(model, loss_fn, optimizer, device, remat, op, compression,
              prescale_factor, postscale_factor, sharded_update, bucket_bytes,
              hierarchical):
     """Set-up shared by make_train_step and make_stateful_train_step:
-    returns the device, the trainable parameters, the gradient allreduce
+    returns the device, the update (gradient exchange and optimizer step)
     and ``local_loss``."""
     device = basics.resolve_device(device)
-    compression = _check_options(sharded_update, bucket_bytes, op,
-                                 compression)
     _place(model, device)
     params = [p for p in model.parameters() if p.requires_grad]
-    allreduce_grads = _make_grad_allreduce(
-        op, compression, prescale_factor, postscale_factor,
-        _resolve_hierarchical(hierarchical))
-    return (device, params, allreduce_grads,
-            _make_local_loss(model, loss_fn, remat, device))
-
-
-def _reduce_grads(params, allreduce_grads):
-    with torch.no_grad():
-        have = [p for p in params if p.grad is not None]
-        for p, g in zip(have, allreduce_grads([p.grad for p in have])):
-            p.grad = g
+    update = _make_update(
+        optimizer, params, op, _check_compression(compression),
+        prescale_factor, postscale_factor,
+        _resolve_hierarchical(hierarchical), sharded_update,
+        resolve_bucket_bytes(bucket_bytes))
+    return device, update, _make_local_loss(model, loss_fn, remat, device)
 
 
 def make_train_step(model: nn.Module,
@@ -222,21 +418,43 @@ def make_train_step(model: nn.Module,
     ``device=None`` means the device ``init()`` chose (``cuda:local_rank``);
     without CUDA that raises unless ``device="cpu"`` is given. The model is
     moved to the device.
+
+    ``compression=Compression.int8`` reduces through the int8 quantized
+    allreduce (about a quarter of the fp32 wire bytes; incompatible with
+    ``hierarchical``). ``op=Adasum`` combines the gradients with per-tensor
+    Adasum coefficients (power-of-two replica counts; compression and
+    buckets do not apply to it). ``bucket_bytes`` (default
+    ``HOROVOD_BUCKET_BYTES``, 0 = off) splits the exchange into buckets of
+    at most that many bytes in reverse parameter order and launches each
+    from the gradient hooks as soon as its gradients are ready, overlapping
+    the communication with the rest of the backward; the result equals the
+    unbucketed one bit for bit for the plain and 16-bit wire formats, and
+    is the same bits for every bound with int8. ``step.exchange.
+    early_launches`` counts the units (one per bucket and dtype) launched
+    before the last gradient hook of the last step fired.
+    ``sharded_update=True`` runs ZeRO-1: ``optimizer`` must come from
+    :func:`~horovod_tpu_torch.parallel.zero.sharded_optimizer` with the
+    same ``bucket_bytes``; only elementwise optimizers are supported, and
+    Adasum and ``hierarchical`` are refused. Parameters that got no
+    gradient are left out of the replicated exchange, and reduce as zeros
+    in the sharded one.
     """
-    device, params, allreduce_grads, local_loss = _prepare(
-        model, loss_fn, device, remat, op, compression, prescale_factor,
-        postscale_factor, sharded_update, bucket_bytes, hierarchical)
+    device, update, local_loss = _prepare(
+        model, loss_fn, optimizer, device, remat, op, compression,
+        prescale_factor, postscale_factor, sharded_update, bucket_bytes,
+        hierarchical)
 
     def step(batch, seed: Optional[int] = None) -> TrainStepOutput:
         batch = _to_device(batch, device)
-        optimizer.zero_grad(set_to_none=True)
+        update.zero_grad()
         loss, aux = local_loss(batch, seed)
+        update.exchange.begin()
         loss.backward()
-        _reduce_grads(params, allreduce_grads)
-        optimizer.step()
+        update.step()
         loss = collectives.allreduce(loss.detach(), op=Average, axis=DP_AXES)
         return TrainStepOutput(loss, _sync_aux(aux))
 
+    step.exchange = update.exchange
     return step
 
 
@@ -269,20 +487,21 @@ def make_stateful_train_step(model: nn.Module,
     backward's recomputation would update the buffers a second time, so
     the step puts back their values from after the forward.
     """
-    device, params, allreduce_grads, local_loss = _prepare(
-        model, loss_fn, device, remat, op, compression, prescale_factor,
-        postscale_factor, sharded_update, bucket_bytes, hierarchical)
+    device, update, local_loss = _prepare(
+        model, loss_fn, optimizer, device, remat, op, compression,
+        prescale_factor, postscale_factor, sharded_update, bucket_bytes,
+        hierarchical)
 
     def step(batch, seed: Optional[int] = None) -> StatefulTrainStepOutput:
         batch = _to_device(batch, device)
         state = {n: b for n, b in model.named_buffers()
                  if b.is_floating_point()}
-        optimizer.zero_grad(set_to_none=True)
+        update.zero_grad()
         loss, aux = local_loss(batch, seed)
         after_forward = [b.clone() for b in state.values()] if remat else []
+        update.exchange.begin()
         loss.backward()
-        _reduce_grads(params, allreduce_grads)
-        optimizer.step()
+        update.step()
         with torch.no_grad():
             for b, v in zip(state.values(), after_forward):
                 b.copy_(v)
@@ -294,6 +513,7 @@ def make_stateful_train_step(model: nn.Module,
         loss = collectives.allreduce(loss.detach(), op=Average, axis=DP_AXES)
         return StatefulTrainStepOutput(loss, state, _sync_state(aux))
 
+    step.exchange = update.exchange
     return step
 
 

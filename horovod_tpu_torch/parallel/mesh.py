@@ -66,6 +66,16 @@ class MeshSpec:
         return sizes
 
 
+def axis_index(sizes: dict, rank: int, axes: Tuple[str, ...]) -> int:
+    """Index of global ``rank`` over the replica axes ``axes``, row-major in
+    the order given (``lax.axis_index`` of a tuple in the reference)."""
+    coords = {"data": rank // sizes["fsdp"], "fsdp": rank % sizes["fsdp"]}
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + coords[a]
+    return idx
+
+
 def replica_groups(sizes: dict) -> Dict[Tuple[str, ...], List[List[int]]]:
     """The rank groups of each set of replica axes, for axis sizes from
     :meth:`MeshSpec.resolve`. Ranks are row-major over (data, fsdp): an

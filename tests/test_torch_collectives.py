@@ -105,11 +105,11 @@ def test_broadcast_replicate_and_axis_queries_world2(world2):
 
 
 def test_unported_ops_raise(world1):
-    """Adasum and the axes beyond the replica axes are not ported; Product
-    is an allreduce case above."""
+    """The axes beyond the replica axes are not ported; Adasum is (at world
+    1 it returns its input), and Product is an allreduce case above."""
     from horovod_tpu_torch.parallel import collectives as c
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.allreduce(torch.ones(2), op=c.Adasum)
+    x = torch.tensor([1.5, -2.0])
+    assert torch.equal(c.allreduce(x, op=c.Adasum), x)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         c.allreduce(torch.ones(2), axis="model")
 

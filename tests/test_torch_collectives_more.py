@@ -4,7 +4,9 @@ broadcast and barrier over an axis, axis_rank/axis_size) against the
 reference's under shard_map: at world 1 in process, at world 2 as two gloo
 processes against a 2-device mesh, and at world 4 as a data=2 x fsdp=2 job
 against a 4-device reference mesh of the same layout, over ``"data"``,
-``"fsdp"`` and both. Also the topology queries and the mesh spec."""
+``"fsdp"`` and both, in either order (a tuple indexes the replicas row-major
+in the order it names the axes). Also the topology queries and the mesh
+spec."""
 
 import numpy as np
 import jax
@@ -114,11 +116,14 @@ def test_world4_data2_fsdp2_matches_reference(world4, name, tag, axis):
 
 def test_axis_layout_world4(world4):
     """fsdp is the fast axis: its groups are runs of consecutive ranks, the
-    data groups strided ranks, both axes the world."""
+    data groups strided ranks, both axes the world; ("fsdp", "data")
+    indexes the world with data as the fast axis."""
     for rank, out in enumerate(world4):
         assert out["axis|data"].tolist() == [rank // 2, 2]
         assert out["axis|fsdp"].tolist() == [rank % 2, 2]
         assert out["axis|data+fsdp"].tolist() == [rank, 4]
+        assert out["axis|fsdp+data"].tolist() == [(rank % 2) * 2 + rank // 2,
+                                                  4]
 
 
 def test_replica_groups_layout():
@@ -130,23 +135,30 @@ def test_replica_groups_layout():
 
 
 def test_unsupported_arguments_raise():
+    """Adasum and a reversed axis tuple run (at world 1 both give the
+    input); the axes beyond the replica axes, a repeated axis and the
+    reference's own refusals raise."""
     from horovod_tpu_torch.parallel import collectives as c
     hvd.init(device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            c.allreduce(torch.ones(2), op=c.Adasum)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            c.grouped_allreduce([torch.ones(2)], op=c.Adasum)
+        x = torch.arange(6.0).reshape(2, 3)
+        assert torch.equal(c.allreduce(x, op=c.Adasum), x)
+        assert torch.equal(c.grouped_allreduce([x, x[0]], op=c.Adasum)[1],
+                           x[0])
+        assert torch.equal(c.allreduce(x, axis=("fsdp", "data")), x)
+        assert c.axis_rank(("fsdp", "data")) == 0
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             c.allgather(torch.ones(2), axis="model")
-        with pytest.raises(ValueError, match="order"):
-            c.allreduce(torch.ones(2), axis=("fsdp", "data"))
+        with pytest.raises(ValueError, match="once"):
+            c.allreduce(torch.ones(2), axis=("data", "data"))
         with pytest.raises(ValueError, match="Sum/Average"):
             c.reducescatter(torch.ones(2), op=c.Max)
         with pytest.raises(ValueError, match="permutation"):
             c.ppermute(torch.ones(2), [(0, 0), (0, 0)])
         with pytest.raises(ValueError, match="permutation"):
             c.ppermute(torch.ones(2), [(0, 1)])
+        with pytest.raises(ValueError, match="Sum/Average"):
+            c.quantized_allreduce(torch.ones(2), op=c.Max)
     finally:
         hvd.shutdown()
 

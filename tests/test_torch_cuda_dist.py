@@ -4,8 +4,12 @@ NCCL, one process per card, against the same cases on gloo on the CPU
 tests/test_torch_stateful_dp.py hold against the reference): every
 collective over data, fsdp and both at data=2 x fsdp=2, and SyncBatchNorm,
 the stateful step with the hierarchical allreduce, make_eval_step and the
-dropout generator at data=2 and at data=2 x fsdp=2. Imports torch and the
-port only (no JAX):
+dropout generator at data=2 and at data=2 x fsdp=2; at data=2 x fsdp=2 the
+bucketed exchange (fp32, bf16 and int8 wires, replicated and ZeRO-1, the
+hooks launching buckets during the backward), the ZeRO-1 and int8 steps,
+the quantized allreduce and Adasum (tests/test_torch_bucketing.py,
+test_torch_zero.py and test_torch_adasum.py hold the same cases on gloo
+against the reference). Imports torch and the port only (no JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_dist.py -q
 
@@ -70,6 +74,63 @@ def test_nccl_collectives_world4_match_gloo(tmp_path):
             np.testing.assert_allclose(got[key], w, rtol=TOL[dtype],
                                        atol=TOL[dtype],
                                        err_msg=f"{key} rank {rank}")
+
+
+def slice5_tolerance(job, key, want):
+    """Tolerance of one result of the bucketing, zero and adasum jobs on
+    NCCL against gloo: int8 results within two quantization levels of the
+    largest value (a gradient a few ulps off may round to the next level);
+    bf16 wire within its resolution; the rest within the fp32 forward and
+    gradient tolerances (TF32 off; the card's GEMMs, flash kernels and
+    reduction order round differently from the CPU's)."""
+    if "int8" in key or key.startswith("quant|"):
+        return dict(rtol=0.0, atol=2 * float(np.abs(want).max()) / 127 + 1e-7)
+    if "bf16" in key:
+        return dict(rtol=1e-2, atol=1e-4)
+    if job == "bucketing" and not key.endswith("losses"):
+        return dict(rtol=5e-3, atol=5e-4 * cases.BUCKET_LR)
+    return FWD
+
+
+def replica_wide(job, key):
+    """Whether every replica of the world holds the same value of ``key``:
+    not so for the Adasum group cases over "data" or "fsdp" alone (one
+    result per subgroup), nor over ("fsdp", "data"), where the reference
+    numbers the exchange partners in the mesh's order (``lax.ppermute``)
+    and the halves in the order named (``axis_index``), so its replicas
+    end with different results, and the port's with the same ones."""
+    return not (job == "adasum" and key.startswith("group|")
+                and key.split("|")[1] != "data+fsdp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("job", ["bucketing", "zero", "adasum"])
+def test_nccl_slice5_world4_matches_gloo(job, tmp_path):
+    """The bucketed, int8, ZeRO-1 and Adasum cases at data=2 x fsdp=2: on
+    NCCL the same results as on gloo, the same bucket launches before the
+    backward's end, and every replica the same numbers where the results
+    are replica-wide."""
+    cards(4)
+    if job == "bucketing":
+        from horovod_tpu_torch.ops import _build
+        _build.build()  # once, before four processes want the kernels
+    args = (cases.gpt_state(),) if job == "bucketing" else ()
+    nccl, gloo = both_backends(4, tmp_path, job, args)
+    for rank, (got, want) in enumerate(zip(nccl, gloo)):
+        assert sorted(got) == sorted(want)
+        for key, w in want.items():
+            if key.endswith(("early", "units")) or w.dtype.kind in "US":
+                np.testing.assert_array_equal(got[key], w, err_msg=key)
+                continue
+            if job == "bucketing" and \
+                    key.split("|")[-1].startswith("param/"):
+                continue  # compared as the change, delta/
+            np.testing.assert_allclose(
+                got[key], w, err_msg=f"{job} {key} rank {rank}",
+                **slice5_tolerance(job, key, w))
+    for key, value in nccl[0].items():
+        if replica_wide(job, key):
+            np.testing.assert_array_equal(nccl[-1][key], value, err_msg=key)
 
 
 @pytest.mark.cuda

@@ -145,7 +145,9 @@ def test_remat_gives_the_same_step():
 
 
 def test_aux_leaves_are_synced_and_unported_options_raise():
-    from horovod_tpu_torch.parallel import dp
+    """Aux leaves are synced; the slice-5 options run, and the pairs the
+    reference refuses raise its ValueErrors."""
+    from horovod_tpu_torch.parallel import dp, zero
     model = torch.nn.Linear(3, 1)
 
     def loss_fn(m, batch):
@@ -162,10 +164,29 @@ def test_aux_leaves_are_synced_and_unported_options_raise():
             torch.ones(4, 3))
         assert out.aux["count"].item() == 5 and out.aux["tag"] == "x"
         torch.testing.assert_close(out.aux["mean"], out.loss)
-        for kw in (dict(sharded_update=True), dict(bucket_bytes=1 << 20),
-                   dict(op=hvd.Op.ADASUM)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                dp.make_train_step(model, loss_fn, opt, device="cpu", **kw)
+        sharded = zero.sharded_optimizer(
+            model, lambda ps: torch.optim.SGD(ps, lr=0.1))
+        for kw in (dict(sharded_update=True, optimizer=sharded),
+                   dict(bucket_bytes=1 << 20), dict(op=hvd.Op.ADASUM),
+                   dict(compression=hvd.Compression.int8)):
+            kw.setdefault("optimizer", opt)
+            ran = dp.make_train_step(model, loss_fn, device="cpu", **kw)(
+                torch.ones(4, 3))
+            assert torch.isfinite(ran.loss)
+        for kw, match in (
+                (dict(sharded_update=True, optimizer=sharded,
+                      op=hvd.Op.ADASUM), "Adasum"),
+                (dict(sharded_update=True, optimizer=sharded,
+                      hierarchical=True), "hierarchical"),
+                (dict(compression=hvd.Compression.int8, hierarchical=True),
+                 "hierarchical"),
+                (dict(sharded_update=True), "sharded_optimizer"),
+                (dict(sharded_update=True, optimizer=sharded,
+                      bucket_bytes=4096), "bucket_bytes"),
+                (dict(optimizer=sharded), "sharded_update=True")):
+            kw.setdefault("optimizer", opt)
+            with pytest.raises(ValueError, match=match):
+                dp.make_train_step(model, loss_fn, device="cpu", **kw)
         # the two-level allreduce is ported: at world 1 it is the identity
         flat = out.loss
         with torch.no_grad():

@@ -92,27 +92,34 @@ def run_collectives(rank: int, world: int) -> dict:
     return out
 
 
-def run_dp_step(rank: int, world: int, state: dict, tokens: np.ndarray,
-                compression: str) -> dict:
-    """One make_train_step step of the tiny GPT (fp32, flash path) on this
-    rank's shard of ``tokens``; returns loss, params and AdamW moments."""
+def _adamw_step(model, loss_fn, batch, compression: str) -> dict:
+    """One make_train_step step with AdamW (the reference tests' optax
+    defaults) on this rank's shard of ``batch``; loss, params and both
+    moments."""
     from horovod_tpu_torch import Compression
-    from horovod_tpu_torch.models.gpt import GptDecoder, lm_loss
     from horovod_tpu_torch.parallel import dp
-    model = GptDecoder(dtype=torch.float32, **GPT_CFG)
-    model.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
     opt = torch.optim.AdamW(model.parameters(), lr=LR, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=1e-4)
     step = dp.make_train_step(
-        model, lm_loss, opt, device="cpu",
+        model, loss_fn, opt, device="cpu",
         compression=getattr(Compression, compression))
-    out = step(dp.shard_batch(torch.tensor(tokens)))
+    out = step(dp.shard_batch(batch))
     res = {"loss": out.loss.numpy()}
     for name, p in model.named_parameters():
         res[f"param/{name}"] = p.detach().numpy()
         res[f"mu/{name}"] = opt.state[p]["exp_avg"].numpy()
         res[f"nu/{name}"] = opt.state[p]["exp_avg_sq"].numpy()
     return res
+
+
+def run_dp_step(rank: int, world: int, state: dict, tokens: np.ndarray,
+                compression: str) -> dict:
+    """One make_train_step step of the tiny GPT (fp32, flash path) on this
+    rank's shard of ``tokens``; returns loss, params and AdamW moments."""
+    from horovod_tpu_torch.models.gpt import GptDecoder, lm_loss
+    model = GptDecoder(dtype=torch.float32, **GPT_CFG)
+    model.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    return _adamw_step(model, lm_loss, torch.tensor(tokens), compression)
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +188,7 @@ PERMS = {
 # take no axis (data is the outer, fsdp the inner level) and run once,
 # under the tag "h"
 MORE_AXES = {1: ["data"], 2: ["data"],
-             4: ["data", "fsdp", ("data", "fsdp")]}
+             4: ["data", "fsdp", ("data", "fsdp"), ("fsdp", "data")]}
 
 
 def axis_tag(axis) -> str:
@@ -433,6 +440,326 @@ def run_stateful(rank: int, world: int, state: dict,
     return res
 
 
+# ---------------------------------------------------------------------------
+# BERT, the bucketed exchange, int8, ZeRO-1 and Adasum
+# (tests/test_torch_{bert,bucketing,zero,adasum}.py)
+
+BERT_CFG = dict(vocab=97, layers=2, hidden=32, heads=4, mlp_dim=64,
+                max_len=64)
+BERT_T = 64
+
+
+def bert_batch(world: int) -> dict:
+    """Random tokens and labels, 2 sequences of BERT_T per replica."""
+    rng = np.random.RandomState(51)
+    return {k: rng.randint(0, BERT_CFG["vocab"], (2 * world, BERT_T))
+            .astype(np.int64) for k in ("tokens", "labels")}
+
+
+def run_bert_dp_step(rank: int, world: int, state: dict,
+                     compression: str) -> dict:
+    """One make_train_step step of the tiny BERT (fp32, flash route) with
+    AdamW on this rank's shard of ``bert_batch``."""
+    from horovod_tpu_torch.models.transformer import BertEncoder, mlm_loss
+    model = BertEncoder(dtype=torch.float32, use_flash=True, **BERT_CFG)
+    model.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    batch = {k: torch.tensor(v) for k, v in bert_batch(world).items()}
+    return _adamw_step(model, mlm_loss, batch, compression)
+
+
+# wire format -> bucket bounds of the bucketed-exchange cases (0: off)
+BUCKET_WIRES = ("none", "bf16", "int8")
+BUCKET_BOUNDS = (0, 4096, 1 << 30)
+BUCKET_STEPS = 2
+
+
+class WithUnused(torch.nn.Module):
+    """The tiny GPT with a parameter the loss never uses (it gets no
+    gradient)."""
+
+    def __init__(self):
+        super().__init__()
+        from horovod_tpu_torch.models.gpt import GptDecoder
+        self.gpt = GptDecoder(dtype=torch.float32, **GPT_CFG)
+        self.unused = torch.nn.Parameter(torch.ones(5))
+
+    def forward(self, tokens):
+        return self.gpt(tokens)
+
+
+def gpt_tokens(world: int) -> np.ndarray:
+    return np.random.RandomState(53).randint(
+        0, GPT_CFG["vocab"], (2 * world, 128)).astype(np.int64)
+
+
+def gpt_state() -> dict:
+    """Weights of the tiny GPT from the port's own init, seed 7."""
+    from horovod_tpu_torch.models.gpt import GptDecoder
+    model = GptDecoder(dtype=torch.float32, **GPT_CFG)
+    model.reset_parameters(torch.Generator().manual_seed(7))
+    return {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+BUCKET_LR = 0.05
+
+
+def bucketed_run(state: dict, world: int, wire: str, sharded: bool,
+                 bound: int, **kw) -> dict:
+    """BUCKET_STEPS steps of the tiny GPT (with an unused parameter) from
+    ``state``, SGD with momentum, replicated or ZeRO-1; params, their
+    change (``delta/``), losses and the units launched before the last
+    gradient hook."""
+    from horovod_tpu_torch import Compression
+    from horovod_tpu_torch.models.gpt import lm_loss
+    from horovod_tpu_torch.parallel import dp, zero
+    model = WithUnused()
+    model.gpt.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def make(ps):
+        return torch.optim.SGD(ps, lr=BUCKET_LR, momentum=0.9)
+    opt = zero.sharded_optimizer(model, make, bucket_bytes=bound) \
+        if sharded else make(model.parameters())
+    step = dp.make_train_step(
+        model, lambda m, t: lm_loss(m.gpt, t), opt, device=_device(),
+        compression=getattr(Compression, wire), sharded_update=sharded,
+        bucket_bytes=bound, **kw)
+    batch = dp.shard_batch(torch.tensor(gpt_tokens(world)))
+    losses = [step(batch).loss.item() for _ in range(BUCKET_STEPS)]
+    res = {f"param/{n}": _np(p) for n, p in model.named_parameters()}
+    res.update({f"delta/{n}": _np(p.detach() - start[n].to(p.device))
+                for n, p in model.named_parameters()})
+    res.update(losses=np.array(losses),
+               early=np.array(step.exchange.early_launches),
+               units=np.array(len(step.exchange.units)))
+    return res
+
+
+def run_bucketing(rank: int, world: int, state: dict) -> dict:
+    """Every (wire, replicated or sharded, bound) of the bucketed-exchange
+    cases, keyed ``wire|sharded|bound|key``; then ``remat|...`` (bound
+    4096, fp32, replicated, with ``remat``)."""
+    out = {}
+    for wire in BUCKET_WIRES:
+        for sharded in (False, True):
+            for bound in BUCKET_BOUNDS:
+                res = bucketed_run(state, world, wire, sharded, bound)
+                out.update({f"{wire}|{int(sharded)}|{bound}|{k}": v
+                            for k, v in res.items()})
+    res = bucketed_run(state, world, "none", False, 4096, remat=True)
+    out.update({f"remat|{k}": v for k, v in res.items()})
+    return out
+
+
+class OddParams(torch.nn.Module):
+    """The reference ZeRO tests' odd-sized parameters (nothing divides the
+    shard counts; test_zero_sharding.py:27-35) and their quadratic loss."""
+
+    def __init__(self):
+        super().__init__()
+        rs = np.random.RandomState(0)
+        vec, mat, deep_w = [torch.tensor(rs.randn(*shape)).float()
+                            for shape in ((13,), (5, 7), (3, 11))]
+        # registered in the reference tree's leaf order (sorted keys): the
+        # fused and bucketed layouts, and so the int8 blocks, then match
+        self.deep_w = torch.nn.Parameter(deep_w)
+        self.mat = torch.nn.Parameter(mat)
+        self.scalar = torch.nn.Parameter(torch.tensor(0.7))
+        self.vec = torch.nn.Parameter(vec)
+
+    @staticmethod
+    def loss(m, batch):
+        total = sum((p ** 2).sum() for p in m.parameters())
+        pred = batch["x"] * m.scalar
+        return ((pred - batch["y"]) ** 2).mean() + 0.01 * total, {}
+
+
+# OddParams name -> the reference's flattened key
+ODD_KEYS = {"scalar": "scalar", "vec": "vec", "mat": "mat",
+            "deep_w": "deep/w"}
+
+
+def odd_batch(n: int = 32) -> dict:
+    rs = np.random.RandomState(1)
+    return {"x": rs.rand(n).astype(np.float32),
+            "y": rs.rand(n).astype(np.float32)}
+
+
+ODD_OPTS = {"sgd_momentum": lambda ps: torch.optim.SGD(ps, lr=0.1,
+                                                       momentum=0.9),
+            "adam": lambda ps: torch.optim.Adam(ps, lr=1e-2),
+            "sgd": lambda ps: torch.optim.SGD(ps, lr=0.1),
+            "sgd_05_momentum": lambda ps: torch.optim.SGD(ps, lr=0.05,
+                                                          momentum=0.9)}
+
+
+def odd_run(opt_name: str, steps: int, **kw) -> dict:
+    """``steps`` steps of OddParams from its fixed start on this rank's
+    shard of ``odd_batch``: params and losses."""
+    from horovod_tpu_torch.parallel import dp, zero
+    model = OddParams()
+    make = ODD_OPTS[opt_name]
+    opt = zero.sharded_optimizer(
+        model, make, bucket_bytes=kw.get("bucket_bytes")) \
+        if kw.get("sharded_update") else make(model.parameters())
+    step = dp.make_train_step(model, OddParams.loss, opt, device=_device(),
+                              **kw)
+    batch = dp.shard_batch({k: torch.tensor(v)
+                            for k, v in odd_batch().items()})
+    losses = [step(batch).loss.item() for _ in range(steps)]
+    res = {f"param/{n}": _np(p) for n, p in model.named_parameters()}
+    res["losses"] = np.array(losses)
+    if kw.get("sharded_update"):
+        res["state_bytes"] = np.array(opt.state_bytes())
+    else:
+        res["state_bytes"] = np.array(sum(
+            v.numel() * v.element_size() for st in opt.state.values()
+            for v in st.values() if torch.is_tensor(v)))
+    return res
+
+
+class TinyBN(torch.nn.Module):
+    """Dense(8) -> BatchNorm -> Dense(3), as the reference's sharded
+    stateful test (test_zero_sharding.py:111-116)."""
+
+    def __init__(self):
+        super().__init__()
+        from horovod_tpu_torch.models.resnet import BatchNorm
+        from horovod_tpu_torch.models.transformer import Dense
+        self.dense0 = Dense(4, 8, torch.float32)
+        self.bn = BatchNorm(8)
+        self.dense1 = Dense(8, 3, torch.float32)
+        g = torch.Generator().manual_seed(0)
+        for d in (self.dense0, self.dense1):
+            torch.nn.init.normal_(d.weight, 0.0, 0.5, generator=g)
+
+    def forward(self, x, train=False):
+        return self.dense1(self.bn(self.dense0(x), train))
+
+
+def stateful_sharded_run(sharded: bool, steps: int = 4) -> dict:
+    import torch.nn.functional as F
+    from horovod_tpu_torch.parallel import dp, zero
+    model = TinyBN()
+
+    def make(ps):
+        return torch.optim.SGD(ps, lr=0.1)
+    opt = zero.sharded_optimizer(model, make) if sharded \
+        else make(model.parameters())
+    step = dp.make_stateful_train_step(
+        model, lambda m, b: (F.cross_entropy(m(b["x"], train=True),
+                                             b["y"]), {}),
+        opt, device=_device(), sharded_update=sharded)
+    rs = np.random.RandomState(0)
+    batch = dp.shard_batch({"x": torch.tensor(rs.rand(16, 4)).float(),
+                            "y": torch.tensor(rs.randint(0, 3, 16))})
+    losses = [step(batch).loss.item() for _ in range(steps)]
+    res = {f"param/{n}": _np(p) for n, p in model.named_parameters()}
+    res.update({f"stats/{n}": _np(b) for n, b in model.named_buffers()})
+    res["losses"] = np.array(losses)
+    return res
+
+
+# the int8 steps held against the reference's: name -> (sharded_update,
+# bucket_bytes). OddParams at 64 bytes makes three buckets: (vec, scalar),
+# (mat), (deep_w)
+INT8_STEPS = {"int8_step|0|0": (False, 0), "int8_step|0|64": (False, 64),
+              "int8_step|1|0": (True, 0), "int8_step|1|64": (True, 64)}
+INT8_STEP_OPT = "sgd_momentum"
+INT8_STEP_COUNT = 2
+
+QUANT_COLS = 333
+
+
+def quant_input(world: int) -> np.ndarray:
+    """[world, QUANT_COLS]: one awkward-length row per replica."""
+    return np.random.RandomState(5).randn(world, QUANT_COLS) \
+        .astype(np.float32)
+
+
+def run_zero(rank: int, world: int) -> dict:
+    """ZeRO-1 against the replicated step (SGD-momentum and Adam, 3 steps;
+    ``opt|sharded|key``), the optimizer state size, the int8 steps, the
+    sharded bf16 wire, the stateful sharded step, and the quantized
+    allreduce of ``quant_input``."""
+    from horovod_tpu_torch import Compression
+    from horovod_tpu_torch.parallel import collectives as c
+    out = {}
+
+    def put(prefix, res):
+        out.update({f"{prefix}|{k}": v for k, v in res.items()})
+    for opt_name in ("sgd_momentum", "adam"):
+        for sharded in (False, True):
+            put(f"{opt_name}|{int(sharded)}",
+                odd_run(opt_name, 3, sharded_update=sharded))
+    put("int8_sharded", odd_run("sgd_05_momentum", 6, sharded_update=True,
+                                compression=Compression.int8))
+    for name, kw in (("exact", {}), ("int8", dict(compression=Compression.int8)),
+                     ("exact_sharded", dict(sharded_update=True)),
+                     ("bf16_sharded", dict(sharded_update=True,
+                                           compression=Compression.bf16))):
+        put(name, odd_run("sgd", 1, **kw))
+    for name, (sharded, bound) in INT8_STEPS.items():
+        put(name, odd_run(INT8_STEP_OPT, INT8_STEP_COUNT,
+                          sharded_update=sharded, bucket_bytes=bound,
+                          compression=Compression.int8))
+    for sharded in (False, True):
+        put(f"stateful|{int(sharded)}", stateful_sharded_run(sharded))
+    x = torch.tensor(quant_input(world)[rank]).to(_device())
+    for axis in (("data", "fsdp"), ("fsdp", "data")):
+        out[f"quant|{axis_tag(axis)}"] = _np(c.quantized_allreduce(
+            x, op=c.Average, axis=axis))
+    return out
+
+
+ADASUM_SHAPES = ((5,), (3, 4), (7,))
+
+
+def adasum_inputs(world: int) -> list:
+    """Per-rank inputs of the Adasum group case: [world, *shape] each."""
+    rng = np.random.RandomState(61)
+    return [rng.randn(world, *shape).astype(np.float32)
+            for shape in ADASUM_SHAPES]
+
+
+# axes each world runs the Adasum cases over
+ADASUM_AXES = {2: [("data", "fsdp"), "data"],
+               4: [("data", "fsdp"), ("fsdp", "data"), "data", "fsdp"]}
+
+
+def run_adasum(rank: int, world: int) -> dict:
+    """adasum_allreduce_group of ``adasum_inputs`` over each axis of
+    ADASUM_AXES (``group|tag|i``), allreduce(op=Adasum) with scaling and
+    grouped_allreduce(op=Adasum), one Adasum train step of OddParams with
+    SGD; at world 3 the error each raises."""
+    from horovod_tpu_torch.parallel import collectives as c
+    from horovod_tpu_torch.parallel.adasum import adasum_allreduce_group
+    xs = [torch.tensor(v[rank]).to(_device()) for v in adasum_inputs(world)]
+    out = {}
+    if world & (world - 1):
+        for name, fn in (("group", lambda: adasum_allreduce_group(xs)),
+                         ("allreduce", lambda: c.allreduce(xs[0],
+                                                           op=c.Adasum))):
+            try:
+                fn()
+                out[f"raised|{name}"] = np.array("")
+            except ValueError as err:
+                out[f"raised|{name}"] = np.array(str(err))
+        return out
+    for axis in ADASUM_AXES[world]:
+        for i, y in enumerate(adasum_allreduce_group(xs, axis)):
+            out[f"group|{axis_tag(axis)}|{i}"] = _np(y)
+    both = ("data", "fsdp")
+    out["allreduce_scaled"] = _np(c.allreduce(
+        xs[1], op=c.Adasum, axis=both, prescale_factor=0.5,
+        postscale_factor=3.0))
+    for i, y in enumerate(c.grouped_allreduce(xs, op=c.Adasum, axis=both)):
+        out[f"grouped|{i}"] = _np(y)
+    out.update({f"step|{k}": v for k, v in
+                odd_run("sgd", 1, op=c.Adasum).items()})
+    return out
+
+
 def worker(rank: int, world: int, store_path: str, out_path: str,
            job: str, job_args: tuple = (), mesh=None,
            device: str = "cpu") -> None:
@@ -488,4 +815,6 @@ def spawn(world: int, tmp_dir, job: str, job_args: tuple = (),
 
 
 JOBS = {"collectives": run_collectives, "dp": run_dp_step,
-        "collectives_more": run_more_collectives, "stateful": run_stateful}
+        "collectives_more": run_more_collectives, "stateful": run_stateful,
+        "bert_dp": run_bert_dp_step, "bucketing": run_bucketing,
+        "zero": run_zero, "adasum": run_adasum}
