@@ -45,7 +45,23 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                included), the int8 quantized allreduce within its bound;
                then SyncBatchNorm forward and backward against the
                ResNet's plain BatchNorm on the same tensors;
-10. bert     - the third main path: init() on NCCL, BertLarge (bf16
+10. frontend - the user frontend at world 1 on NCCL: every eager op
+               (name-negotiated, fp32, bf16 and int32, each equal to its
+               world-1 value; barrier, poll before and after completion,
+               join, metric_average, broadcast_object, allgather_object),
+               the median latency of a 4-byte and a 64 MiB
+               synchronize(allreduce_async()) beside the in-step
+               allreduce; GptSmall at seq 1024 and batch 8 trained as a
+               user writes the loop (broadcast_parameters,
+               DistributedOptimizer(AdamW, bf16 wire, two backward passes
+               per step), broadcast_optimizer_state, 10 microsteps): the
+               loss must fall, each kernel launch 12 times per microstep,
+               the parameters stay put off the boundary; one
+               DistributedOptimizer step equal to one make_train_step step
+               within rtol 1e-6; MNIST (BASELINE config 1) through
+               DistributedOptimizer(SGD(momentum=0.9)), 20 steps, the loss
+               must fall;
+11. bert     - the third main path: init() on NCCL, BertLarge (bf16
                compute, fp32 params, flash attention, non-causal) at seq
                512 and batch 8, random tokens and labels from seed 0,
                make_train_step with AdamW(1e-4), 5 steps under each option
@@ -57,7 +73,7 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                of one replicated step. In each set the loss must be finite
                and fall and each kernel launch 24 times per step; with
                buckets, some must be launched before the backward ends;
-11. resnet   - the second main path: init() on NCCL, ResNet50 (bf16
+12. resnet   - the second main path: init() on NCCL, ResNet50 (bf16
                compute, fp32 params and BatchNorm statistics) on 224x224x3
                NHWC images, 1000 classes, batch 128,
                make_stateful_train_step with SGD(lr=0.05, momentum=0.9), 5
@@ -66,7 +82,7 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                finite and fall and every running statistic must have moved
                and stay finite and fp32. It runs no flash kernel.
 
-Then the kernels line (launches per path: gpt, bert, resnet), the
+Then the kernels line (launches per path: gpt, frontend, bert, resnet), the
 nvidia-smi line, and the final
 ``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes the nvcc
 logs there; ``--profile`` adds one profiled GPT train step, one profiled
@@ -780,6 +796,286 @@ def sync_bn_check(device):
 
 
 # ---------------------------------------------------------------------------
+# the user frontend (BASELINE config 1: "PyTorch-style MNIST
+# (DistributedOptimizer)"): the eager ops, the broadcast helpers, and
+# GPT-2 small and MNIST trained through DistributedOptimizer
+
+FRONT = dict(micro=10, bpps=2, lr=3e-4, weight_decay=1e-4,
+             mnist_batch=64, mnist_steps=20, mnist_lr=0.01,
+             small_iters=50, big_bytes=64 << 20, big_iters=10, step_iters=4)
+
+
+def eager_ops_check(device):
+    """Every eager op on card tensors at world 1 through the name
+    negotiation and NCCL, each equal to its world-1 value (one rank's
+    reduction, gather, exchange or broadcast is its input), in fp32, bf16
+    and int32; barrier, poll before and after completion, join, and the
+    object helpers."""
+    import torch
+    import horovod_tpu_torch as hvd
+    checked = []
+    g = torch.Generator().manual_seed(8)
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        x = (torch.randn(8, 4, generator=g) * 4).to(device, dt)
+        tag = str(dt)[6:]
+        handles = [hvd.allreduce_async(x, op=op, name=f"{op.name}.{tag}")
+                   for op in (hvd.Sum, hvd.Min, hvd.Max, hvd.Product)]
+        pairs = [(f"allreduce_async_{h.name}", hvd.synchronize(h), x)
+                 for h in handles]
+        pairs += [
+            ("allreduce_average_scaled", hvd.allreduce(
+                x, op=hvd.Average, prescale_factor=2.0,
+                postscale_factor=0.5), x),
+            ("allreduce_legacy_average", hvd.allreduce(x, average=True), x),
+            ("grouped_allreduce", hvd.grouped_allreduce([x, x[0]])[1], x[0]),
+            ("allgather_ragged", hvd.allgather(x[:3]), x[:3]),
+            ("alltoall_splits", hvd.alltoall(x, splits=[8]), x),
+            ("alltoall_even", hvd.alltoall(x), x),
+            ("broadcast", hvd.broadcast(x, 0), x),
+            ("allreduce_in_step", hvd.allreduce(x, op=hvd.Sum, axis="data"),
+             x)]
+        if dt.is_floating_point:
+            pairs.append(("allreduce_adasum", hvd.allreduce(
+                x, op=hvd.Adasum), x))
+        for name, got, want in pairs:
+            if got.dtype != want.dtype or got.device != x.device or \
+                    not bool(torch.equal(got, want)):
+                raise AssertionError(f"frontend: eager {name} {tag} differs "
+                                     "from its world-1 value")
+            checked.append(f"{name}/{tag}")
+    hvd.barrier()
+    # the card is kept busy: the op cannot have completed yet
+    busy_wait_card(50.0)
+    h = hvd.allreduce_async(torch.ones(1 << 20, device=device), name="poll")
+    before = hvd.poll(h)
+    out = hvd.synchronize(h)
+    torch.cuda.synchronize()
+    after = hvd.poll(h)
+    if before or not after or not bool((out == 1).all()):
+        raise AssertionError(f"frontend: poll {before} before and {after} "
+                             "after completion")
+    last = hvd.join()
+    if last != -1:
+        raise AssertionError(f"frontend: join() gave {last} at world 1")
+    avg = hvd.metric_average(torch.tensor(2.5, device=device))
+    obj = {"epoch": 3, "lr": [0.1, 0.01], "name": "frontend"}
+    got_obj = hvd.broadcast_object(obj, 0)
+    gathered = hvd.allgather_object(obj)
+    if float(avg) != 2.5 or got_obj != obj or gathered != [obj]:
+        raise AssertionError(f"frontend: metric_average {avg}, "
+                             f"broadcast_object {got_obj}, allgather_object "
+                             f"{gathered}")
+    checked += ["barrier", "poll", "join", "metric_average",
+                "broadcast_object", "allgather_object"]
+    return checked, {"poll_before": before, "poll_after": after,
+                     "join": last}
+
+
+def eager_latency(device):
+    """Median wall time (ms) of ``synchronize(allreduce_async(x))`` until
+    the card is done, for a 4-byte and a 64 MiB fp32 tensor, beside the
+    in-step allreduce of the same tensor on the default group: the cost of
+    the name negotiation."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import collectives as c
+    out = {}
+    for label, numel, iters in (
+            ("4B", 1, FRONT["small_iters"]),
+            ("64MiB", FRONT["big_bytes"] // 4, FRONT["big_iters"])):
+        x = torch.ones(numel, device=device)
+        for name, fn in (
+                ("eager", lambda: hvd.synchronize(hvd.allreduce_async(
+                    x, op=hvd.Sum, name="latency"))),
+                ("in_step", lambda: c.allreduce(x, op=c.Sum))):
+            times = []
+            for i in range(iters + 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if i >= 2:  # the first two set up the communicator
+                    times.append((time.perf_counter() - t0) * 1e3)
+            out[f"{name}_{label}_ms"] = statistics.median(times)
+    return out
+
+
+def frontend_gpt(device):
+    """GPT-2 small as a user writes the loop: broadcast_parameters,
+    DistributedOptimizer(AdamW, bf16 wire, two backward passes per step),
+    broadcast_optimizer_state, FRONT["micro"] microsteps on two fixed
+    batches. The loss must be finite and fall; every kernel launch 12
+    times per microstep; the parameters stay as they were after each
+    microstep off the boundary. Then, from the same weights and batch, one
+    DistributedOptimizer(AdamW) step equals one make_train_step step, and
+    both are timed."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.gpt import GptSmall, lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import dp
+    base = GptSmall(dtype=torch.bfloat16)
+    base.reset_parameters(torch.Generator().manual_seed(0))
+    state = {k: v.to(device) for k, v in base.state_dict().items()}
+    layers = len(base.blocks)
+    del base
+    gen = torch.Generator().manual_seed(1)
+    batches = [torch.randint(0, 50257, (MAIN["b"], MAIN["t"]),
+                             generator=gen).to(device) for _ in range(2)]
+
+    def build(bpps=FRONT["bpps"], compression=hvd.Compression.bf16):
+        with torch.device(device):
+            model = GptSmall(dtype=torch.bfloat16)
+        model.load_state_dict(state)
+        inner = torch.optim.AdamW(model.parameters(), lr=FRONT["lr"],
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=FRONT["weight_decay"])
+        return model, inner, hvd.DistributedOptimizer(
+            inner, compression=compression, backward_passes_per_step=bpps)
+
+    model, _, opt = build()
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    losses, micro_ms, unchanged = [], [], 0
+    for k in range(FRONT["micro"]):
+        before = [p.detach().clone() for p in model.parameters()] \
+            if k % FRONT["bpps"] == 0 else None
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = lm_loss(model, batches[k % 2])[0]
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())  # waits for the microstep
+        micro_ms.append((time.perf_counter() - t0) * 1e3)
+        if before is not None:
+            if not all(torch.equal(a, p) for a, p in
+                       zip(before, model.parameters())):
+                raise AssertionError(f"frontend: microstep {k} off the "
+                                     "boundary moved the parameters")
+            unchanged += 1
+    counts = fa.launch_counts()
+    del model, opt, before
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"frontend: non-finite loss {losses}")
+    # the same batch comes back every second microstep
+    if not (losses[-2] < losses[0] and losses[-1] < losses[1]):
+        raise AssertionError(f"frontend: loss did not fall {losses}")
+    want = layers * FRONT["micro"]
+    if counts != {k: want for k in counts}:
+        raise AssertionError(f"frontend: launches {counts}, want {want} "
+                             "each")
+    # one DistributedOptimizer step against one make_train_step step
+    model_a, _, opt_a = build(bpps=1, compression=hvd.Compression.none)
+    opt_a.zero_grad(set_to_none=True)
+    lm_loss(model_a, batches[0])[0].backward()
+    opt_a.step()
+    with torch.device(device):
+        model_b = GptSmall(dtype=torch.bfloat16)
+    model_b.load_state_dict(state)
+    step_b = dp.make_train_step(model_b, lm_loss, torch.optim.AdamW(
+        model_b.parameters(), lr=FRONT["lr"], betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=FRONT["weight_decay"]))
+    step_b(batches[0]).loss.item()
+    diff = 0.0
+    for (name, a), b in zip(model_a.named_parameters(),
+                            model_b.parameters()):
+        diff = max(diff, close(f"frontend: DistributedOptimizer vs "
+                               f"make_train_step {name}", a.detach(),
+                               b.detach(), 1e-6, 0.0)[0])
+    del model_a, opt_a, model_b, step_b
+    torch.cuda.empty_cache()
+    # make_train_step with the loop's options, timed the same way
+    with torch.device(device):
+        model_c = GptSmall(dtype=torch.bfloat16)
+    model_c.load_state_dict(state)
+    step_c = dp.make_train_step(model_c, lm_loss, torch.optim.AdamW(
+        model_c.parameters(), lr=FRONT["lr"], betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=FRONT["weight_decay"]),
+        compression=hvd.Compression.bf16)
+    step_ms = []
+    for i in range(FRONT["step_iters"] + 1):
+        t0 = time.perf_counter()
+        step_c(batches[i % 2]).loss.item()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    del model_c, step_c
+    torch.cuda.empty_cache()
+    boundary = micro_ms[3::2]  # after the first update
+    accumulate = micro_ms[2::2]
+    return counts, {
+        "model": "GptSmall", "batch": MAIN["b"], "seq": MAIN["t"],
+        "optimizer": f"DistributedOptimizer(AdamW(lr={FRONT['lr']}, "
+                     f"weight_decay={FRONT['weight_decay']}), "
+                     f"compression=bf16, backward_passes_per_step="
+                     f"{FRONT['bpps']})",
+        "microsteps": FRONT["micro"], "losses": losses,
+        "microstep_ms": micro_ms,
+        "accumulate_microstep_ms": statistics.mean(accumulate),
+        "boundary_microstep_ms": statistics.mean(boundary),
+        "unchanged_off_boundary": unchanged, "launches": counts,
+        "dist_opt_vs_make_train_step_max_abs_err": diff,
+        "make_train_step_ms": step_ms,
+        "make_train_step_steady_ms": statistics.mean(step_ms[1:])}
+
+
+def frontend_mnist(device):
+    """BASELINE config 1: MnistConvNet at batch 64 through
+    DistributedOptimizer(SGD(momentum=0.9)), FRONT["mnist_steps"] steps on
+    one fixed batch from seed 0; the loss must fall."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import MnistConvNet
+    model = MnistConvNet()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(device)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(
+        model.parameters(), lr=FRONT["mnist_lr"], momentum=0.9))
+    rs = np.random.RandomState(0)
+    n = FRONT["mnist_batch"]
+    images = torch.tensor(rs.rand(n, 28, 28, 1), dtype=torch.float32,
+                          device=device)
+    labels = torch.tensor(rs.randint(0, 10, n), device=device)
+    losses = []
+    for _ in range(FRONT["mnist_steps"]):
+        opt.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(model(images), labels)
+        loss.backward()
+        opt.step()
+        losses.append(float(hvd.metric_average(loss.detach())))
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"frontend: MNIST loss did not fall {losses}")
+    return {"model": "MnistConvNet", "batch": n,
+            "optimizer": f"DistributedOptimizer(SGD(lr={FRONT['mnist_lr']}, "
+                         "momentum=0.9))",
+            "steps": FRONT["mnist_steps"], "losses": losses}
+
+
+def frontend(device, card):
+    """The frontend phase: the eager ops, their latency, GPT-2 small and
+    MNIST through DistributedOptimizer, at world 1 on NCCL."""
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    try:
+        checked, flags = eager_ops_check(device)
+        latency = eager_latency(device)
+        counts, gpt = frontend_gpt(device)
+        mnist = frontend_mnist(device)
+    finally:
+        hvd.shutdown()
+    return counts, {"phase": "frontend", "nvidia_smi": card,
+                    "backend": "nccl", "world_size": 1,
+                    "eager_checked": len(checked), "eager_cases": checked,
+                    **flags, "eager_latency": latency, "gpt": gpt,
+                    "mnist": mnist}
+
+
+# ---------------------------------------------------------------------------
 # the BERT-Large path (BASELINE config 3: BERT-Large pretraining with tensor
 # fusion and fp16 gradient compression), at seq 512 as in phase-2 pretraining
 
@@ -1163,6 +1459,8 @@ def main() -> int:
         emit(prof)
 
     emit(collectives_check(device))
+    counts["frontend"], front_line = frontend(device, card)
+    emit(front_line)
     counts["bert"], bert_lines, profs = bert(device, opts.out, opts.profile)
     for line in bert_lines + profs:
         emit(line)

@@ -10,11 +10,16 @@ builds a device mesh, the port runs one process per GPU and creates a
 ``device="cpu"``. The group exists even at world size 1, so the gradient
 allreduce always runs through the same backend. ``init()`` also creates one
 subgroup per replica axis (``data``, ``fsdp``) of the mesh spec, which the
-collectives map their ``axis`` argument to.
+collectives map their ``axis`` argument to, and the two groups of the
+eager ops (``common/eager.py``): a gloo control group for the name
+negotiation and a data group on the step's backend, apart from the default
+group so that an eager launch never interleaves with the step's
+collectives on one communicator.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import threading
 from datetime import timedelta
@@ -24,7 +29,8 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common.env import env_int
-from horovod_tpu_torch.parallel.mesh import (AXIS_ORDER, MeshSpec, axis_index,
+from horovod_tpu_torch.parallel.mesh import (AXIS_ORDER, REPLICA_AXES,
+                                             MeshSpec, axis_index,
                                              replica_groups)
 
 
@@ -57,6 +63,8 @@ class _Context:
         # world; the group's global ranks in ascending order)
         self.groups: dict = {}
         self.sizes: dict = {}  # axis -> size
+        # the eager ops' process groups: (gloo control, data)
+        self.eager_groups: Optional[tuple] = None
 
     def init(self, device=None, mesh_spec: Optional[MeshSpec] = None,
              store: Optional[dist.Store] = None,
@@ -85,6 +93,13 @@ class _Context:
             self.cross_rank = env_int("HOROVOD_CROSS_RANK", rank)
             self.cross_size = env_int("HOROVOD_CROSS_SIZE", size)
             self.groups = _axis_groups(sizes, rank)
+            # collective: every rank creates both, in this order. A rank
+            # that has joined waits in a negotiation round while the
+            # others train on for as long as their data lasts: the
+            # control group waits a day, not the data groups' timeout
+            self.eager_groups = (
+                dist.new_group(backend="gloo", timeout=timedelta(days=1)),
+                dist.new_group(backend=backend))
             self.sizes = sizes
             self.device = dev
             self.initialized = True
@@ -93,11 +108,14 @@ class _Context:
         with self._lock:
             if not self.initialized:
                 return
+            from horovod_tpu_torch.common import eager
+            eager.stop_executor()
             dist.destroy_process_group()
             self.initialized = False
             self.device = None
             self.groups = {}
             self.sizes = {}
+            self.eager_groups = None
 
 
 def _axis_groups(sizes: dict, rank: int) -> dict:
@@ -182,6 +200,14 @@ def cross_rank() -> int:
 def cross_size() -> int:
     _require_init()
     return _ctx.cross_size
+
+
+def num_replicas() -> int:
+    """Total data-parallel replicas (reference basics.py:340-357): one GPU
+    per process, so the product of the replica axes' sizes, which is the
+    world size."""
+    _require_init()
+    return math.prod(_ctx.sizes[a] for a in REPLICA_AXES)
 
 
 def axis_group(axes: Tuple[str, ...]) -> Tuple[Optional[dist.ProcessGroup],

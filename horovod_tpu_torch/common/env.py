@@ -1,7 +1,7 @@
 """Environment variables the port reads.
 
 Counterpart of ``horovod_tpu/common/env_registry.py`` (``env_int``,
-``env_bool``), limited to the variables this package reads. Same parsing
+``env_float``, ``env_bool``), limited to the variables this package reads. Same parsing
 rules: unset or empty means the default; a boolean is false for "0",
 "false", "no" and "off" (any case) and true for anything else.
 """
@@ -26,6 +26,10 @@ REGISTRY = {
         0, "bound in bytes of one gradient bucket of the train step's "
            "exchange, launched while the backward runs (0: one exchange "
            "after the backward)"),
+    "HOROVOD_CYCLE_TIME": (
+        1.0, "eager ops: the negotiation loop's cycle time in ms"),
+    "HOROVOD_FUSION_THRESHOLD": (
+        64 << 20, "eager ops: bound in bytes of one fused allreduce"),
     "HOROVOD_FLASH_MIN_SEQ": (
         256, "key length from which attention routes to the flash kernels "
              "(the crossover measured on an H100)"),
@@ -49,6 +53,15 @@ def env_int(name: str, default=_UNSET) -> int:
     if v in (None, ""):
         return REGISTRY[name][0] if default is _UNSET else default
     return int(v)
+
+
+def env_float(name: str, default=_UNSET) -> float:
+    """The float value of registered variable ``name``; ``default`` (or
+    the registered default) when it is unset or empty."""
+    v = _raw(name)
+    if v in (None, ""):
+        return float(REGISTRY[name][0] if default is _UNSET else default)
+    return float(v)
 
 
 def env_bool(name: str, default=_UNSET) -> bool:

@@ -12,15 +12,22 @@ consumed and every expected key present; anything else raises ``KeyError``.
 The same mapping serves any tree shaped like the params (optimizer moments,
 gradients). Layouts: conv kernels ``[kh, kw, in, out]`` become ``[out, in,
 kh, kw]``, Dense kernels ``[in, out]`` become ``[out, in]``.
+
+One table per model (``gpt_entries``, ``bert_entries``, ``mnist_entries``,
+``resnet_entries``) lists every leaf as ``(flax path, port key, kind)``.
+The converters read it, and each model tags its parameters with it
+(:func:`tag_leaves`), which gives the gradient exchange the reference's
+leaf order and layout (``parallel/bucketing.reference_layout``).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 _BLOCK = re.compile(r"EncoderBlock_(\d+)$")
 _RESNET_BLOCK = re.compile(r"(BottleneckBlock|ResNetBlock)_(\d+)$")
@@ -61,11 +68,6 @@ def _t(a: np.ndarray) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32))
 
 
-def _conv(kernel: np.ndarray) -> torch.Tensor:
-    """flax conv kernel [kh, kw, in, out] -> torch [out, in, kh, kw]."""
-    return _t(np.transpose(kernel, (3, 2, 0, 1)))
-
-
 def _check_consumed(*trees: _Tree) -> None:
     left = [k for t in trees for k in t.leftover()]
     if left:
@@ -87,31 +89,18 @@ def from_flax_resnet(params, batch_stats=None) -> Dict[str, torch.Tensor]:
     ``var`` buffers) -> the port's ResNet ``state_dict``. Without
     ``batch_stats`` only the parameters are mapped (a gradient tree)."""
     src = _Tree(params)
-    stats = _Tree(batch_stats) if batch_stats is not None else None
-    sd: Dict[str, torch.Tensor] = {}
-
-    def norm(path, out):
-        sd[f"{out}.scale"] = _t(src.take(*path, "scale"))
-        sd[f"{out}.bias"] = _t(src.take(*path, "bias"))
-        if stats is not None:
-            sd[f"{out}.mean"] = _t(stats.take(*path, "mean"))
-            sd[f"{out}.var"] = _t(stats.take(*path, "var"))
-
-    sd["conv_init.weight"] = _conv(src.take("conv_init", "kernel"))
-    norm(("bn_init",), "bn_init")
-    for kind, i in _indices(params, _RESNET_BLOCK):
-        blk, out = f"{kind}_{i}", f"blocks.{i}"
-        for j in range(_RESNET_CONVS[kind]):
-            sd[f"{out}.conv{j}.weight"] = _conv(
-                src.take(blk, f"Conv_{j}", "kernel"))
-            norm((blk, f"BatchNorm_{j}"), f"{out}.bn{j}")
-        if "conv_proj" in params[blk]:
-            sd[f"{out}.conv_proj.weight"] = _conv(
-                src.take(blk, "conv_proj", "kernel"))
-            norm((blk, "norm_proj"), f"{out}.norm_proj")
-    sd["head.weight"] = _t(src.take("head", "kernel").T)
-    sd["head.bias"] = _t(src.take("head", "bias"))
-    _check_consumed(src, *([stats] if stats is not None else []))
+    blocks = [(kind, "conv_proj" in params[f"{kind}_{i}"])
+              for kind, i in _indices(params, _RESNET_BLOCK)]
+    entries, norms = resnet_entries(blocks)
+    sd = _convert(src, entries)
+    trees = [src]
+    if batch_stats is not None:
+        stats = _Tree(batch_stats)
+        for path, key in norms:
+            sd[f"{key}.mean"] = _t(stats.take(*path, "mean"))
+            sd[f"{key}.var"] = _t(stats.take(*path, "var"))
+        trees.append(stats)
+    _check_consumed(*trees)
     return sd
 
 
@@ -120,72 +109,144 @@ def from_flax_mnist(params) -> Dict[str, torch.Tensor]:
     ``state_dict``. ``Dense_0``'s rows are in the NHWC flatten order that
     both models use."""
     src = _Tree(params)
-    sd = {}
-    for j in range(2):
-        sd[f"conv{j}.weight"] = _conv(src.take(f"Conv_{j}", "kernel"))
-        sd[f"conv{j}.bias"] = _t(src.take(f"Conv_{j}", "bias"))
-        sd[f"dense{j}.weight"] = _t(src.take(f"Dense_{j}", "kernel").T)
-        sd[f"dense{j}.bias"] = _t(src.take(f"Dense_{j}", "bias"))
+    sd = _convert(src, mnist_entries())
     _check_consumed(src)
     return sd
 
 
-def _blocks(src: _Tree, tree, sd: Dict[str, torch.Tensor]) -> None:
-    """Map every ``EncoderBlock_i`` of ``tree`` onto ``blocks.i``."""
+# how a flax leaf of each kind becomes the port's tensor: Dense kernels
+# [in, out] -> [out, in]; attention kernels [d, h, hd] -> [h * hd, d] and
+# [h, hd, d] -> [d, h * hd]; attention biases [h, hd] -> [h * hd]
+_TO_PORT = {"same": lambda a: a, "dense": lambda a: a.T,
+            "qkv": lambda a: a.reshape(a.shape[0], -1).T,
+            "out": lambda a: a.reshape(-1, a.shape[-1]).T,
+            "flat": lambda a: a.reshape(-1),
+            "conv": lambda a: np.transpose(a, (3, 2, 0, 1))}
+
+
+def _dense(path, key):
+    return [(path + ("kernel",), f"{key}.weight", "dense"),
+            (path + ("bias",), f"{key}.bias", "same")]
+
+
+def _layer_norm(path, key):
+    return [(path + ("scale",), f"{key}.weight", "same"),
+            (path + ("bias",), f"{key}.bias", "same")]
+
+
+def _block_entries(attns) -> list:
+    """``(flax path, port key, kind)`` of every ``EncoderBlock_i``, with
+    ``attns[i]`` the name flax gave block i's attention module."""
+    out = []
+    for i, attn in enumerate(attns):
+        blk, key = (f"EncoderBlock_{i}",), f"blocks.{i}"
+        out += _layer_norm(blk + ("LayerNorm_0",), f"{key}.ln0")
+        out += _layer_norm(blk + ("LayerNorm_1",), f"{key}.ln1")
+        for name in ("query", "key", "value"):
+            path = blk + (attn, name)
+            out += [(path + ("kernel",), f"{key}.attn.{name}.weight", "qkv"),
+                    (path + ("bias",), f"{key}.attn.{name}.bias", "flat")]
+        out += [(blk + (attn, "out", "kernel"), f"{key}.attn.out.weight",
+                 "out"),
+                (blk + (attn, "out", "bias"), f"{key}.attn.out.bias",
+                 "same")]
+        out += _dense(blk + ("Dense_0",), f"{key}.mlp0")
+        out += _dense(blk + ("Dense_1",), f"{key}.mlp1")
+    return out
+
+
+def _embeddings():
+    return [(("Embed_0", "embedding"), "embed", "same"),
+            (("Embed_1", "embedding"), "pos_embed", "same")]
+
+
+def gpt_entries(attns) -> list:
+    """The GptDecoder's leaves: ``(flax path, port key, kind)``. The final
+    LayerNorm is ``LayerNorm_0``."""
+    return _embeddings() + _block_entries(attns) + \
+        _layer_norm(("LayerNorm_0",), "ln_f")
+
+
+def bert_entries(attns) -> list:
+    """The BertEncoder's leaves. BERT's embedding LayerNorm comes first,
+    so flax names it ``LayerNorm_0`` and the final one ``LayerNorm_1``."""
+    return _embeddings() + _layer_norm(("LayerNorm_0",), "ln_embed") + \
+        _block_entries(attns) + _layer_norm(("LayerNorm_1",), "ln_f") + \
+        [(("lm_bias",), "lm_bias", "same")]
+
+
+def mnist_entries() -> list:
+    """The MnistConvNet's leaves."""
+    out = []
+    for j in range(2):
+        out += [((f"Conv_{j}", "kernel"), f"conv{j}.weight", "conv"),
+                ((f"Conv_{j}", "bias"), f"conv{j}.bias", "same")]
+        out += _dense((f"Dense_{j}",), f"dense{j}")
+    return out
+
+
+def _norm_entries(path, key):
+    return [(path + ("scale",), f"{key}.scale", "same"),
+            (path + ("bias",), f"{key}.bias", "same")]
+
+
+def resnet_entries(blocks) -> Tuple[list, list]:
+    """``(parameter leaves, BatchNorm paths)`` of a ResNet whose blocks
+    are ``blocks``: ``(kind, has_projection)`` each, ``kind`` the block
+    class's name. A BatchNorm path is ``(flax path, port key)``; its
+    ``mean`` and ``var`` live in ``batch_stats``."""
+    norms = [(("bn_init",), "bn_init")]
+    params = [(("conv_init", "kernel"), "conv_init.weight", "conv")]
+    for i, (kind, proj) in enumerate(blocks):
+        blk, key = (f"{kind}_{i}",), f"blocks.{i}"
+        for j in range(_RESNET_CONVS[kind]):
+            params.append((blk + (f"Conv_{j}", "kernel"),
+                           f"{key}.conv{j}.weight", "conv"))
+            norms.append((blk + (f"BatchNorm_{j}",), f"{key}.bn{j}"))
+        if proj:
+            params.append((blk + ("conv_proj", "kernel"),
+                           f"{key}.conv_proj.weight", "conv"))
+            norms.append((blk + ("norm_proj",), f"{key}.norm_proj"))
+    for path, key in norms:
+        params += _norm_entries(path, key)
+    return params + _dense(("head",), "head"), norms
+
+
+def _convert(src: _Tree, entries) -> Dict[str, torch.Tensor]:
+    return {key: _t(_TO_PORT[kind](src.take(*path)))
+            for path, key, kind in entries}
+
+
+def tag_leaves(module: nn.Module, entries) -> None:
+    """Give each parameter of ``module`` named in ``entries`` its flax leaf
+    as ``flax_leaf = (path, kind)``: the reference's leaf order and layout
+    that ``parallel/bucketing.reference_layout`` reads."""
+    for path, key, kind in entries:
+        module.get_parameter(key).flax_leaf = (path, kind)
+
+
+def _attns(tree) -> list:
+    """The attention module name of every ``EncoderBlock_i`` of ``tree``;
+    the indices must be 0..n-1."""
     blocks = sorted(int(m.group(1)) for k in tree
                     if (m := _BLOCK.match(k)))
     if blocks != list(range(len(blocks))):
         raise KeyError(f"EncoderBlock indices are not 0..n-1: {blocks}")
-    for i in blocks:
-        blk, out = f"EncoderBlock_{i}", f"blocks.{i}"
-        for ln_src, ln_dst in (("LayerNorm_0", "ln0"), ("LayerNorm_1", "ln1")):
-            _layer_norm(src, (blk, ln_src), f"{out}.{ln_dst}", sd)
-        attn = next((a for a in _ATTN if a in tree[blk]), _ATTN[0])
-        for name in ("query", "key", "value"):
-            kernel = src.take(blk, attn, name, "kernel")  # [d, h, hd]
-            d = kernel.shape[0]
-            sd[f"{out}.attn.{name}.weight"] = _t(kernel.reshape(d, -1).T)
-            sd[f"{out}.attn.{name}.bias"] = _t(
-                src.take(blk, attn, name, "bias").reshape(-1))
-        kernel = src.take(blk, attn, "out", "kernel")  # [h, hd, d]
-        sd[f"{out}.attn.out.weight"] = _t(
-            kernel.reshape(-1, kernel.shape[-1]).T)
-        sd[f"{out}.attn.out.bias"] = _t(src.take(blk, attn, "out", "bias"))
-        for dense_src, dense_dst in (("Dense_0", "mlp0"), ("Dense_1", "mlp1")):
-            sd[f"{out}.{dense_dst}.weight"] = _t(
-                src.take(blk, dense_src, "kernel").T)
-            sd[f"{out}.{dense_dst}.bias"] = _t(
-                src.take(blk, dense_src, "bias"))
-
-
-def _layer_norm(src: _Tree, path, out: str, sd) -> None:
-    sd[f"{out}.weight"] = _t(src.take(*path, "scale"))
-    sd[f"{out}.bias"] = _t(src.take(*path, "bias"))
+    return [next((a for a in _ATTN if a in tree[f"EncoderBlock_{i}"]),
+                 _ATTN[0]) for i in blocks]
 
 
 def from_flax_params(tree) -> Dict[str, torch.Tensor]:
-    """flax GptDecoder params -> the port's GptDecoder ``state_dict``. The
-    final LayerNorm is ``LayerNorm_0``."""
+    """flax GptDecoder params -> the port's GptDecoder ``state_dict``."""
     src = _Tree(tree)
-    sd = {"embed": _t(src.take("Embed_0", "embedding")),
-          "pos_embed": _t(src.take("Embed_1", "embedding"))}
-    _blocks(src, tree, sd)
-    _layer_norm(src, ("LayerNorm_0",), "ln_f", sd)
+    sd = _convert(src, gpt_entries(_attns(tree)))
     _check_consumed(src)
     return sd
 
 
 def from_flax_bert(tree) -> Dict[str, torch.Tensor]:
-    """flax BertEncoder params -> the port's BertEncoder ``state_dict``.
-    BERT's embedding LayerNorm comes first, so flax names it
-    ``LayerNorm_0`` and the final one ``LayerNorm_1`` (GPT's final one is
-    ``LayerNorm_0``)."""
+    """flax BertEncoder params -> the port's BertEncoder ``state_dict``."""
     src = _Tree(tree)
-    sd = {"embed": _t(src.take("Embed_0", "embedding")),
-          "pos_embed": _t(src.take("Embed_1", "embedding"))}
-    _layer_norm(src, ("LayerNorm_0",), "ln_embed", sd)
-    _blocks(src, tree, sd)
-    _layer_norm(src, ("LayerNorm_1",), "ln_f", sd)
-    sd["lm_bias"] = _t(src.take("lm_bias"))
+    sd = _convert(src, bert_entries(_attns(tree)))
     _check_consumed(src)
     return sd

@@ -13,7 +13,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from horovod_tpu_torch.models.convert import gpt_entries, tag_leaves
 from horovod_tpu_torch.models.transformer import (EncoderBlock, LayerNorm,
+                                                  attention_names,
                                                   embed_normal_,
                                                   reset_blocks_)
 
@@ -33,6 +35,7 @@ class GptDecoder(nn.Module):
             EncoderBlock(hidden, heads, mlp_dim, dtype, use_flash=use_flash,
                          causal=True) for _ in range(layers))
         self.ln_f = LayerNorm(hidden, dtype)
+        tag_leaves(self, gpt_entries(attention_names(self.blocks)))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initializers from ``generator``: embeddings N(0,

@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from horovod_tpu_torch.models.convert import mnist_entries, tag_leaves
 from horovod_tpu_torch.models.transformer import Dense, lecun_normal_
 
 
@@ -32,6 +33,7 @@ class MnistConvNet(nn.Module):
         self.conv1 = nn.Conv2d(10, 20, 5)
         self.dense0 = Dense(320, 50, dtype)
         self.dense1 = Dense(50, num_classes, dtype)
+        tag_leaves(self, mnist_entries())
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initializers from ``generator``: lecun-normal (truncated)

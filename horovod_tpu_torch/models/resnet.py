@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from horovod_tpu_torch.models.convert import resnet_entries, tag_leaves
 from horovod_tpu_torch.models.transformer import Dense, lecun_normal_
 
 
@@ -212,6 +213,9 @@ class ResNet(nn.Module):
                 cin = filters * block_cls.expansion
         self.blocks = nn.ModuleList(blocks)
         self.head = Dense(cin, num_classes, torch.float32)
+        tag_leaves(self, resnet_entries(
+            [(type(b).__name__, b.conv_proj is not None)
+             for b in self.blocks])[0])
         # flax keeps the running statistics fp32 whatever param_dtype is
         for p in self.parameters():
             p.data = p.data.to(param_dtype)

@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from horovod_tpu_torch.models.convert import bert_entries, tag_leaves
 from horovod_tpu_torch.ops.flash_attention import attention, masked_attention
 
 # std of a unit normal truncated at +-2: flax's variance_scaling divides by
@@ -163,6 +164,14 @@ class EncoderBlock(nn.Module):
         return x + self.mlp1(h)
 
 
+def attention_names(blocks) -> list:
+    """The name flax gives each block's attention module: the reference
+    builds ``FlashSelfAttention`` with ``use_flash`` and
+    ``nn.MultiHeadDotProductAttention`` without."""
+    return ["FlashSelfAttention_0" if b.use_flash
+            else "MultiHeadDotProductAttention_0" for b in blocks]
+
+
 class BertEncoder(nn.Module):
     """Masked-LM encoder (reference transformer.py:87-116): token and
     position embeddings, an embedding LayerNorm, N bidirectional pre-LN
@@ -185,6 +194,7 @@ class BertEncoder(nn.Module):
             for _ in range(layers))
         self.ln_f = LayerNorm(hidden, dtype)
         self.lm_bias = nn.Parameter(torch.zeros(vocab))
+        tag_leaves(self, bert_entries(attention_names(self.blocks)))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """flax's initializers from ``generator``: embeddings N(0,

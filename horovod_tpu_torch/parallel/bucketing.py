@@ -24,6 +24,14 @@ Rules, as in the reference:
 
 The collectives are elementwise, so for the plain and cast wire formats the
 bucketed result equals the unbucketed one bit for bit.
+
+The int8 wire is not elementwise: its blocks group neighbours of the flat
+layout. :func:`reference_layout` gives the reference's leaf order (jax's
+sorted-key flattening of the flax tree) and per-tensor layout (Dense
+kernels ``[in, out]``, conv kernels ``[kh, kw, in, out]``) for a model whose
+parameters carry them (``models/convert.py`` tags them); the int8 exchanges
+and ZeRO-1 lay the gradients out so, and the blocks then hold the
+reference's elements.
 """
 
 from __future__ import annotations
@@ -33,6 +41,51 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from horovod_tpu_torch.common.env import env_int
+
+
+# how a tensor of each ``models/convert.py`` leaf kind reads in the
+# reference's layout, and back: the 2-D kernels transposed, conv kernels
+# permuted; the others keep their element order
+_TO_REF = {"dense": lambda t: t.t(), "qkv": lambda t: t.t(),
+           "out": lambda t: t.t(), "conv": lambda t: t.permute(2, 3, 1, 0)}
+_FROM_REF = {"dense": lambda t: t.t(), "qkv": lambda t: t.t(),
+             "out": lambda t: t.t(), "conv": lambda t: t.permute(3, 2, 0, 1)}
+
+
+class Layout(NamedTuple):
+    """``order``: tensor positions in the reference's leaf order; ``kinds``:
+    per position, the leaf kind that says how the tensor is laid out
+    (None: as the reference lays it out)."""
+    order: Tuple[int, ...]
+    kinds: Tuple[Optional[str], ...]
+
+    @classmethod
+    def plain(cls, n: int) -> "Layout":
+        """``n`` tensors in their own order and layout."""
+        return cls(tuple(range(n)), (None,) * n)
+
+    def to_ref(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Tensor ``t`` of position ``i`` in the reference's layout (a
+        view)."""
+        fn = _TO_REF.get(self.kinds[i])
+        return fn(t) if fn else t
+
+    def from_ref(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`to_ref` (a view)."""
+        fn = _FROM_REF.get(self.kinds[i])
+        return fn(t) if fn else t
+
+
+def reference_layout(params: Sequence[torch.Tensor]) -> Layout:
+    """The reference's order and layout of ``params`` when every one
+    carries its flax leaf (``flax_leaf = (path, kind)``, set by the
+    models); otherwise ``params`` as they come."""
+    leaves = [getattr(p, "flax_leaf", None) for p in params]
+    if not leaves or any(leaf is None for leaf in leaves):
+        return Layout.plain(len(leaves))
+    return Layout(tuple(sorted(range(len(params)),
+                               key=lambda i: leaves[i][0])),
+                  tuple(kind for _, kind in leaves))
 
 
 class Bucket(NamedTuple):
@@ -103,6 +156,17 @@ def plan_units(leaves: Sequence[torch.Tensor], bucket_bytes: int,
     return [u for b in plan_buckets(leaves, bucket_bytes)
             for u in _split_dtype(leaves, b.indices, f"b{b.index:04d}/")], \
         block_size
+
+
+def plan_units_in(layout: Layout, leaves: Sequence[torch.Tensor],
+                  bucket_bytes: int, block_size: int = 1
+                  ) -> Tuple[List[Unit], int]:
+    """:func:`plan_units` of ``leaves`` taken in ``layout.order``, each
+    unit's indices mapped back to positions in ``leaves``."""
+    units, align = plan_units([leaves[i] for i in layout.order],
+                              bucket_bytes, block_size)
+    return [u._replace(indices=tuple(layout.order[j] for j in u.indices))
+            for u in units], align
 
 
 def fuse(xs: Sequence[torch.Tensor], align: int = 1,

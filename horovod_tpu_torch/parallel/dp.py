@@ -36,7 +36,9 @@ from horovod_tpu_torch.common.env import env_bool
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.ops.fusion import fused_apply, map_tree
 from horovod_tpu_torch.parallel import collectives, zero
-from horovod_tpu_torch.parallel.bucketing import (fuse, plan_units,
+from horovod_tpu_torch.parallel.bucketing import (Layout, fuse,
+                                                  plan_units_in,
+                                                  reference_layout,
                                                   resolve_bucket_bytes,
                                                   unfuse)
 from horovod_tpu_torch.parallel.collectives import Average, Op
@@ -78,13 +80,11 @@ class _Exchange:
     on every replica, as the collectives need. A tied weight accumulates
     once, after all of its uses. Units whose parameters got no gradient
     never fill; ``finish()`` launches whatever is left, in unit order, then
-    waits on every unit. ``zero_fill`` gives a parameter without a gradient
-    a zero one (the sharded layout is fixed); otherwise it is left out."""
+    waits on every unit. A parameter without a gradient reduces as zeros,
+    as ``jax.value_and_grad`` gives an unused leaf a zero gradient."""
 
-    def __init__(self, params, units, start, overlap: bool,
-                 zero_fill: bool = False):
+    def __init__(self, params, units, start, overlap: bool):
         self.params, self.units, self._start = params, units, start
-        self._zero_fill = zero_fill
         self._active = False
         # units launched before the last gradient hook of the last backward
         self.early_launches = 0
@@ -115,26 +115,21 @@ class _Exchange:
 
     def _launch(self, unit: int) -> None:
         idxs = self.units[unit]
-        if self._zero_fill:
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in (self.params[i] for i in idxs)]
-        else:
-            idxs = [i for i in idxs if self.params[i].grad is not None]
-            grads = [self.params[i].grad for i in idxs]
-        if grads:
-            self._pending[unit] = (idxs, self._start(unit, grads))
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in (self.params[i] for i in idxs)]
+        self._pending[unit] = (idxs, self._start(unit, grads))
         self._next = unit + 1
 
     def finish(self) -> list:
-        """``(unit, parameter positions, result)`` of every unit that had
-        gradients, in unit order, after waiting on each. The exchange then
-        holds none of the step's buffers."""
+        """``(unit, parameter positions, result)`` of every unit, in unit
+        order, after waiting on each. The exchange then holds none of the
+        step's buffers."""
         self._active = False
         while self._next < len(self.units):
             self._launch(self._next)
         pending, self._pending = self._pending, []
-        return [(u, item[0], item[1].wait())
-                for u, item in enumerate(pending) if item is not None]
+        return [(u, idxs, work.wait())
+                for u, (idxs, work) in enumerate(pending)]
 
 
 def _on_grad(exchange_ref, unit: int, _param) -> None:
@@ -154,9 +149,10 @@ def _check_compression(compression):
 
 
 def _replicated_reduce(op, compression, prescale_factor, postscale_factor,
-                       hierarchical, align):
+                       hierarchical, align, units, layout):
     """``start(unit, grads) -> Pending`` of the replicated path (reference
-    dp.py:84-144): the unit's gradients fused into one flat tensor and
+    dp.py:84-144): the unit's gradients (of the parameters ``units[unit]``,
+    each laid out as ``layout`` says) fused into one flat tensor and
     allreduced over the replica axes, quantized (int8), two-level, or in
     the compressor's wire dtype (without fp32 accumulation)."""
     if op is collectives.Adasum:
@@ -170,7 +166,9 @@ def _replicated_reduce(op, compression, prescale_factor, postscale_factor,
         return adasum
     quantized = getattr(compression, "quantized", False)
 
-    def start(_unit, grads):
+    def start(unit, grads):
+        idxs = units[unit]
+        grads = [layout.to_ref(i, g) for i, g in zip(idxs, grads)]
         shapes = [g.shape for g in grads]  # the gradients are not kept
         flat = fuse(grads, align)
         if quantized:
@@ -195,7 +193,9 @@ def _replicated_reduce(op, compression, prescale_factor, postscale_factor,
             if compression is not None:
                 pending = pending.then(
                     lambda out: compression.decompress(out, ctx))
-        return pending.then(lambda out: unfuse(out, shapes, align))
+        return pending.then(lambda out: [
+            layout.from_ref(i, r)
+            for i, r in zip(idxs, unfuse(out, shapes, align))])
     return start
 
 
@@ -277,10 +277,24 @@ def _make_update(optimizer, params, op, compression, prescale_factor,
             compression=compression, prescale_factor=prescale_factor,
             postscale_factor=postscale_factor)
         exchange = _Exchange(params, [g.indices for g in optimizer.groups],
-                             start, overlap=bucket_bytes > 0, zero_fill=True)
+                             start, overlap=bucket_bytes > 0)
         return _ShardedUpdate(optimizer, exchange, compression)
     if isinstance(optimizer, zero.ShardedOptimizer):
         raise ValueError("a zero.sharded_optimizer needs sharded_update=True")
+    exchange = replicated_exchange(params, op, compression, prescale_factor,
+                                   postscale_factor, hierarchical,
+                                   bucket_bytes)
+    return _ReplicatedUpdate(optimizer, params, exchange)
+
+
+def replicated_exchange(params, op, compression, prescale_factor,
+                        postscale_factor, hierarchical,
+                        bucket_bytes) -> _Exchange:
+    """The replicated path's gradient exchange of ``params``, with the
+    reference's refusals: fused per dtype, or per (bucket, dtype) with a
+    bound (launched from the gradient hooks); int8 in the reference's leaf
+    order and layout (``bucketing.reference_layout``)."""
+    quantized = getattr(compression, "quantized", False)
     if quantized:
         if hierarchical:
             raise ValueError(
@@ -292,17 +306,20 @@ def _make_update(optimizer, params, op, compression, prescale_factor,
                              f"got {op}")
     adasum = op is collectives.Adasum
     bucketed = bucket_bytes > 0 and not adasum
+    layout = reference_layout(params) if quantized else \
+        Layout.plain(len(params))
     # int8 buckets pad every tensor to whole blocks: the result is then the
     # same bits for every bucket bound
-    units, align = plan_units(params, bucket_bytes if bucketed else 0,
-                              compression.block_size if quantized else 1)
-    start = _replicated_reduce(op, compression, prescale_factor,
-                               postscale_factor, hierarchical, align)
+    units, align = plan_units_in(layout, params,
+                                 bucket_bytes if bucketed else 0,
+                                 compression.block_size if quantized else 1)
     units = [u.indices for u in units]
     if adasum:
         units = [tuple(range(len(params)))] if params else []
-    exchange = _Exchange(params, units, start, overlap=bucketed)
-    return _ReplicatedUpdate(optimizer, params, exchange)
+    start = _replicated_reduce(op, compression, prescale_factor,
+                               postscale_factor, hierarchical, align, units,
+                               layout)
+    return _Exchange(params, units, start, overlap=bucketed)
 
 
 def _sync_aux(aux):
@@ -435,9 +452,13 @@ def make_train_step(model: nn.Module,
     ``sharded_update=True`` runs ZeRO-1: ``optimizer`` must come from
     :func:`~horovod_tpu_torch.parallel.zero.sharded_optimizer` with the
     same ``bucket_bytes``; only elementwise optimizers are supported, and
-    Adasum and ``hierarchical`` are refused. Parameters that got no
-    gradient are left out of the replicated exchange, and reduce as zeros
-    in the sharded one.
+    Adasum and ``hierarchical`` are refused. A parameter that got no
+    gradient reduces as zeros on either path, as ``jax.value_and_grad``
+    gives it a zero gradient, and the optimizer steps it (weight decay
+    and moments included). The int8 wire, and ZeRO-1's shards, follow the
+    reference's leaf order and layout where the model's parameters carry
+    it (``bucketing.reference_layout``), so the quantization blocks hold
+    the reference's elements.
     """
     device, update, local_loss = _prepare(
         model, loss_fn, optimizer, device, remat, op, compression,

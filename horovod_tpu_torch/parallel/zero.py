@@ -16,7 +16,10 @@ Layout: parameters group per dtype (first-seen order, as ``ops/fusion.py``
 fuses), or per (bucket, dtype) with a bucket bound (every tensor then
 padded to whole ``block_size`` blocks, ``parallel/bucketing.py``), each
 group flattened, zero-padded to a multiple of ``N * block_size`` and split
-contiguously over the replicas. ``torch.optim`` needs tensors, not a
+contiguously over the replicas. Where the model's parameters carry the
+reference's leaf order and layout (``bucketing.reference_layout``), the
+groups follow it, so the shards and the int8 blocks hold the reference's
+elements. ``torch.optim`` needs tensors, not a
 pytree: :func:`sharded_optimizer` (the counterpart of ``sharded_opt_init``)
 builds the optimizer over one flat shard tensor per group, and
 ``make_train_step(..., sharded_update=True)`` takes that object.
@@ -42,7 +45,9 @@ import torch.nn as nn
 
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.parallel import collectives
-from horovod_tpu_torch.parallel.bucketing import (fuse, plan_units,
+from horovod_tpu_torch.parallel.bucketing import (Layout, fuse,
+                                                  plan_units_in,
+                                                  reference_layout,
                                                   resolve_bucket_bytes,
                                                   unfuse)
 from horovod_tpu_torch.parallel.collectives import Average, Op, Pending, Sum
@@ -64,13 +69,17 @@ class _DtypeGroup(NamedTuple):
 
 
 def plan_groups(leaves: Sequence[torch.Tensor], n_shards: int,
-                bucket_bytes: int, block_size: int = LANE
+                bucket_bytes: int, block_size: int = LANE,
+                layout: Optional[Layout] = None
                 ) -> Tuple[Tuple[_DtypeGroup, ...], int]:
-    """``(groups, leaf_align)``: the units of ``bucketing.plan_units`` with
-    the shard geometry on top, each group's flat length padded to a
-    multiple of ``n_shards * block_size`` (reference ``_group_leaves``
-    and ``bucket_groups``, zero.py:61-104)."""
-    units, leaf_align = plan_units(leaves, bucket_bytes, block_size)
+    """``(groups, leaf_align)``: the units of ``bucketing.plan_units`` (in
+    ``layout``'s order, shapes in its layout) with the shard geometry on
+    top, each group's flat length padded to a multiple of ``n_shards *
+    block_size`` (reference ``_group_leaves`` and ``bucket_groups``,
+    zero.py:61-104)."""
+    layout = layout or Layout.plain(len(leaves))
+    units, leaf_align = plan_units_in(layout, leaves, bucket_bytes,
+                                      block_size)
     lane = n_shards * block_size
     groups = []
     for unit in units:
@@ -79,7 +88,8 @@ def plan_groups(leaves: Sequence[torch.Tensor], n_shards: int,
         padded = total + (-total) % lane
         groups.append(_DtypeGroup(
             key=unit.key, dtype=unit.dtype, indices=unit.indices,
-            sizes=sizes, shapes=tuple(leaves[i].shape for i in unit.indices),
+            sizes=sizes, shapes=tuple(layout.to_ref(i, leaves[i]).shape
+                                      for i in unit.indices),
             padded=padded, shard=padded // n_shards))
     return tuple(groups), leaf_align
 
@@ -112,8 +122,9 @@ class ShardedOptimizer:
         self.bucket_bytes, self.block_size = bucket_bytes, block_size
         self.n_shards = collectives.axis_size(axes)
         rank = collectives.axis_rank(axes)
+        self.layout = reference_layout(params)
         self.groups, self.leaf_align = plan_groups(
-            params, self.n_shards, bucket_bytes, block_size)
+            params, self.n_shards, bucket_bytes, block_size, self.layout)
         self._pieces = [_local_pieces(g, rank, self.leaf_align)
                         for g in self.groups]
         device = params[0].device if params else basics.device()
@@ -124,10 +135,12 @@ class ShardedOptimizer:
 
     @torch.no_grad()
     def load_shards(self) -> None:
-        """Copy this replica's slice of the parameters into the shards."""
+        """Copy this replica's slice of the parameters, in the groups'
+        layout, into the shards."""
         for shard, pieces in zip(self.shards, self._pieces):
             for i, a, b, s in pieces:
-                shard[s:s + b - a].copy_(self.params[i].reshape(-1)[a:b])
+                src = self.layout.to_ref(i, self.params[i]).reshape(-1)
+                shard[s:s + b - a].copy_(src[a:b])
 
     def state_bytes(self) -> int:
         """Bytes of optimizer state this replica holds."""
@@ -173,7 +186,9 @@ def reduce_scatter_grads(sopt: ShardedOptimizer, index: int,
     or in the compressor's wire dtype. Returns a :class:`Pending` of this
     replica's shard of the reduced gradient."""
     group = sopt.groups[index]
-    flat = fuse(grads, sopt.leaf_align, group.padded)
+    flat = fuse([sopt.layout.to_ref(i, g)
+                 for i, g in zip(group.indices, grads)],
+                sopt.leaf_align, group.padded)
     flat = collectives._scale(flat, prescale_factor)
     if getattr(compression, "quantized", False):
         pending = collectives.quantized_reducescatter(
@@ -220,7 +235,7 @@ def apply_sharded_update(sopt: ShardedOptimizer,
             full = collectives.allgather(update, axis=sopt.axes)
         for i, u in zip(group.indices,
                         unfuse(full, group.shapes, sopt.leaf_align)):
-            sopt.params[i].add_(u)
+            sopt.params[i].add_(sopt.layout.from_ref(i, u))
 
 
 def optimizer_state_bytes(params: Sequence[torch.Tensor], n_shards: int,

@@ -9,7 +9,12 @@ bucketed exchange (fp32, bf16 and int8 wires, replicated and ZeRO-1, the
 hooks launching buckets during the backward), the ZeRO-1 and int8 steps,
 the quantized allreduce and Adasum (tests/test_torch_bucketing.py,
 test_torch_zero.py and test_torch_adasum.py hold the same cases on gloo
-against the reference). Imports torch and the port only (no JAX):
+against the reference); at world 4 the name-negotiated eager ops (every
+op and dtype, out-of-order submission, the three join cases, the ragged
+allgather, a dtype mismatch) and DistributedOptimizer over its whole
+option matrix on MNIST (tests/test_torch_eager.py and
+test_torch_distributed_optimizer.py hold them on gloo against the
+reference). Imports torch and the port only (no JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_dist.py -q
 
@@ -155,3 +160,54 @@ def test_nccl_stateful_step_matches_gloo(world, tmp_path):
                                        **tol)
         np.testing.assert_array_equal(got["mask0"], got["mask1"])
     assert not np.array_equal(nccl[0]["mask0"], nccl[1]["mask0"])
+
+
+def eager_tolerance(key: str) -> dict:
+    """Integers and the join and aux results equal, fp32 within 1e-6,
+    16-bit floats within the reference test's 1e-2."""
+    dtype = key.split("|")[1] if key.count("|") >= 2 else "int32"
+    if dtype in ("bfloat16", "float16", "mixed"):
+        return dict(rtol=1e-2, atol=0.0)
+    if dtype == "float32":
+        return dict(rtol=1e-6, atol=0.0)
+    return dict(rtol=0.0, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_nccl_eager_world4_matches_gloo(tmp_path):
+    """The eager ops on NCCL (negotiated on gloo, run on a side stream of
+    each card) give gloo's results: out-of-order names, joins and the
+    mismatch included."""
+    cards(4)
+    nccl, gloo = both_backends(4, tmp_path, "eager")
+    for rank, (got, want) in enumerate(zip(nccl, gloo)):
+        assert sorted(got) == sorted(want)
+        for key, w in want.items():
+            if w.dtype.kind in "US":
+                np.testing.assert_array_equal(got[key], w, err_msg=key)
+                continue
+            np.testing.assert_allclose(got[key], w, err_msg=f"{key} {rank}",
+                                       **eager_tolerance(key))
+
+
+@pytest.mark.cuda
+def test_nccl_distributed_optimizer_world4_matches_gloo(tmp_path):
+    """Every DistributedOptimizer configuration on MNIST: the parameters
+    after each microstep on NCCL equal gloo's within rtol 1e-5 (int8: all
+    but the rare one-level flips of another rounding order)."""
+    cards(4)
+    nccl, gloo = both_backends(4, tmp_path, "dist_opt",
+                               ({"mnist": cases.mnist_tree()},))
+    tol = dict(rtol=1e-5, atol=1e-6)
+    for got, want in zip(nccl, gloo):
+        assert sorted(got) == sorted(want)
+        for cfg in cases.DOPT_MODELS["mnist"]:
+            keys = [k for k in want if k.startswith(f"mnist|{cfg}|")]
+            if cases.DOPT_CONFIGS[cfg][1] == "int8":
+                bad, total, _ = cases.int8_mismatches(
+                    {k: got[k] for k in keys}, {k: want[k] for k in keys},
+                    tol)
+                assert bad <= max(2, cases.INT8_FLIP_RATE * total), cfg
+                continue
+            for k in keys:
+                np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)

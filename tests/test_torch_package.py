@@ -27,7 +27,9 @@ def test_import_loads_no_jax_or_reference_module():
         "import horovod_tpu_torch, horovod_tpu_torch.parallel.dp, "
         "horovod_tpu_torch.models.convert, horovod_tpu_torch.models.gpt, "
         "horovod_tpu_torch.models.resnet, horovod_tpu_torch.models.mnist, "
-        "horovod_tpu_torch.sync_batch_norm, horovod_tpu_torch.ops._build\n"
+        "horovod_tpu_torch.sync_batch_norm, horovod_tpu_torch.ops._build, "
+        "horovod_tpu_torch.common.eager, horovod_tpu_torch.mpi_ops, "
+        "horovod_tpu_torch.functions, horovod_tpu_torch.optimizer\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=PKG.parent, check=True)

@@ -760,6 +760,484 @@ def run_adasum(rank: int, world: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the name-negotiated eager ops (tests/test_torch_eager.py)
+
+EAGER_DTYPES = ("float32", "int32", "bfloat16", "float16")
+EAGER_TIMEOUT = 10.0  # seconds each op may take, far under the ring's 15
+# alltoall splits[src][dst] of the uneven case (the reference's at world 4)
+EAGER_SPLITS = {2: [[1, 2], [3, 0]],
+                4: [[1, 2, 0, 1], [2, 1, 1, 0], [0, 1, 2, 1], [1, 0, 1, 2]]}
+
+
+def eager_values(seed: int, shape, dtype: str) -> np.ndarray:
+    """float32 values every dtype of EAGER_DTYPES holds exactly."""
+    rs = np.random.RandomState(seed)
+    if dtype == "int32":
+        return rs.randint(-20, 20, shape).astype(np.float32)
+    return (rs.randint(-40, 40, shape) * 0.25).astype(np.float32)
+
+
+def _op(name, kind, x, dtype, **kw) -> dict:
+    return dict(name=name, type=kind, x=x, dtype=dtype, **kw)
+
+
+def eager_cases(world: int) -> dict:
+    """case -> one list of ops per rank, in that rank's submission order.
+    An op is a dict: ``name``, ``type`` (allreduce, grouped, allgather,
+    broadcast, alltoall), ``x`` (float32 values; a list for grouped),
+    ``dtype`` and the op's own keys (``op``, ``prescale``, ``postscale``,
+    ``root``, ``splits``)."""
+    cases = {}
+    ranks = range(world)
+    for i, dt in enumerate(EAGER_DTYPES):
+        seed = 1000 + 100 * i
+        cases[f"sum|{dt}"] = [[_op("t", "allreduce", eager_values(
+            seed + r, (2, 3), dt), dt, op="Sum")] for r in ranks]
+        cases[f"allgather_ragged|{dt}"] = [[_op("ag", "allgather", eager_values(
+            seed + 10 + r, (r + 1, 2), dt), dt)] for r in ranks]
+        cases[f"broadcast_root|{dt}"] = [[_op("bc", "broadcast", eager_values(
+            seed + 20 + r, (3, 3), dt), dt, root=world // 2)] for r in ranks]
+        cases[f"alltoall_even|{dt}"] = [[_op("a2a", "alltoall", eager_values(
+            seed + 30 + r, (2 * world, 2), dt), dt)] for r in ranks]
+    for name, dt, op, pre, post in (
+            ("average_scaled", "float32", "Average", 2.0, 0.5),
+            ("average_scaled", "int32", "Average", 3.0, 0.5),
+            ("average", "int32", "Average", 1.0, 1.0),
+            ("min", "float32", "Min", 1.0, 1.0),
+            ("min", "int32", "Min", 1.0, 1.0),
+            ("max", "float32", "Max", 1.0, 1.0),
+            ("max", "bfloat16", "Max", 1.0, 1.0),
+            ("product", "float32", "Product", 1.0, 1.0),
+            ("product", "int32", "Product", 1.0, 1.0)):
+        cases[f"{name}|{dt}"] = [[_op("r", "allreduce", eager_values(
+            hash_seed(name, dt, r), (4,), dt), dt, op=op, prescale=pre,
+            postscale=post)] for r in ranks]
+    cases["alltoall_uneven|float32"] = [[_op(
+        "a2av", "alltoall", eager_values(2000 + r, (
+            sum(EAGER_SPLITS[world][r]), 3), "float32"), "float32",
+        splits=EAGER_SPLITS[world][r])] for r in ranks]
+    # five tensors of three dtypes submitted together: fused per dtype
+    cases["fused_mixed|mixed"] = [[_op(
+        f"fz{i}", "allreduce", eager_values(3000 + 10 * i + r, (3 + i,), dt),
+        dt, op="Sum") for i, dt in enumerate(
+            ("float32", "int32", "float32", "bfloat16", "float32"))]
+        for r in ranks]
+    cases["grouped|float32"] = [[_op("grp", "grouped", [
+        eager_values(4000 + 10 * i + r, (2 + i,), "float32")
+        for i in range(3)], "float32", op="Average")] for r in ranks]
+    # the same names, each rank in its own order
+    names = [f"ooo{i}" for i in range(5)]
+    cases["out_of_order|float32"] = [[_op(
+        n, "allreduce", eager_values(5000 + 10 * int(n[3:]) + r, (4,),
+                                     "float32"), "float32", op="Sum")
+        for n in names[r % 5:] + names[:r % 5]][::(-1) ** r] for r in ranks]
+    cases["adasum|float32"] = [[_op("ada", "allreduce", np.random.RandomState(
+        6000 + r).uniform(-1, 1, 8).astype(np.float32), "float32",
+        op="Adasum")] for r in ranks]
+    return cases
+
+
+def hash_seed(*parts) -> int:
+    """A seed from strings and ints, the same in every process."""
+    import zlib
+    return zlib.crc32("/".join(map(str, parts)).encode()) & 0x7fffffff
+
+
+def eager_submit(o: dict):
+    """Submit one op of :func:`eager_cases` through the port's eager API;
+    returns its handle (a list of handles for grouped)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import eager as e
+
+    def tensor(x):
+        return torch.tensor(x).to(getattr(torch, o["dtype"]))
+    kind = o["type"]
+    if kind in ("allreduce", "grouped"):
+        kw = dict(name=o["name"], op=getattr(hvd, o["op"]),
+                  prescale_factor=o.get("prescale", 1.0),
+                  postscale_factor=o.get("postscale", 1.0))
+        if kind == "grouped":
+            return e.grouped_allreduce_async([tensor(x) for x in o["x"]],
+                                             **kw)
+        return e.allreduce_async(tensor(o["x"]), **kw)
+    if kind == "allgather":
+        return e.allgather_async(tensor(o["x"]), name=o["name"])
+    if kind == "broadcast":
+        return e.broadcast_async(tensor(o["x"]), o["root"], name=o["name"])
+    return e.alltoall_async(tensor(o["x"]), splits=o.get("splits"),
+                            name=o["name"])
+
+
+def run_eager(rank: int, world: int) -> dict:
+    """Every case of :func:`eager_cases` (all ops of a case submitted, then
+    synchronized), the three join cases and a dtype mismatch; results as
+    float64 under ``case|op name``."""
+    import time
+    from horovod_tpu_torch.common import eager as e
+    out = {}
+
+    def wait(h):
+        return _np(e.synchronize(h, timeout=EAGER_TIMEOUT).double())
+    for case, per_rank in eager_cases(world).items():
+        handles = [(o, eager_submit(o)) for o in per_rank[rank]]
+        for o, h in handles:
+            if o["type"] == "grouped":
+                for i, hi in enumerate(h):
+                    out[f"{case}|{o['name']}.{i}"] = wait(hi)
+                continue
+            out[f"{case}|{o['name']}"] = wait(h)
+            if h.aux:
+                for kind, v in h.aux.items():
+                    out[f"{case}|{o['name']}|{kind}"] = np.asarray(v)
+    # join 1: rank world-1 joins; the others reduce with Min, Max, Product
+    if rank == world - 1:
+        e.join()
+    else:
+        for name in ("Min", "Max", "Product"):
+            x = torch.tensor([rank + 1.0, -(rank + 1.0)])
+            out[f"join_identity|{name}"] = wait(e.allreduce_async(
+                x, name=f"j{name}", op=getattr(e, name)))
+        e.join()
+    # join 2: rank 2 % world joins; the others gather ragged rows
+    if rank == 2 % world:
+        e.join()
+    else:
+        out["join_allgather"] = wait(e.allgather_async(
+            torch.full((rank + 1, 3), float(rank)), name="jgather"))
+        e.join()
+    # join 3: rank 1 joins conspicuously last
+    time.sleep(0.05 * rank if rank != 1 else 1.0)
+    out["join_last"] = np.array(e.join())
+    # the ranks disagree on the dtype: every rank fails, naming the field
+    x = torch.ones(3, dtype=torch.int32 if rank == 1 else torch.float32)
+    try:
+        e.synchronize(e.allreduce_async(x, name="bad"), timeout=EAGER_TIMEOUT)
+        out["mismatch"] = np.array("")
+    except e.HorovodInternalError as err:
+        out["mismatch"] = np.array(str(err))
+    return out
+
+
+def run_eager_adasum(rank: int, world: int) -> dict:
+    """The Adasum case of :func:`eager_cases` alone."""
+    from horovod_tpu_torch.common import eager as e
+    (o,) = eager_cases(world)["adasum|float32"][rank]
+    return {"adasum": _np(e.synchronize(eager_submit(o),
+                                        timeout=EAGER_TIMEOUT))}
+
+
+# ---------------------------------------------------------------------------
+# DistributedOptimizer, the int8 layout and zero-filled gradients
+# (tests/test_torch_distributed_optimizer.py, test_torch_layout.py)
+#
+# The gradients are given, not computed: both frameworks then reduce and
+# apply the same bits, and what is held against the reference is the
+# exchange and the update, at rtol 1e-5. The values are multiples of 2^-10
+# below 16 * 2^-10, so that every wire (fp16, bf16) and every order of
+# summation over four replicas and two microsteps is exact; for the int8
+# wire they are uniform floats instead, since grid values put many
+# elements exactly halfway between two int8 levels.
+
+MESHES = {1: (1, 1), 2: (2, 1), 4: (2, 2)}
+GRAD_STEPS = 4
+# the leaf whose gradient is zero on the reference's side and absent on
+# the port's: a parameter the loss does not reach
+ZERO_LEAF = {"gpt": ("LayerNorm_0", "scale"),
+             "bert": ("LayerNorm_1", "scale"),
+             "mnist": ("Dense_1", "kernel"), "resnet": ("head", "kernel")}
+ZERO_KEY = {"gpt": "ln_f.weight", "bert": "ln_f.weight",
+            "mnist": "dense1.weight", "resnet": "head.weight"}
+
+
+def grid_grads(tree: dict, model: str, rank: int, step: int,
+               smooth: bool = False, path=()) -> dict:
+    """A gradient tree shaped like the flax ``tree``: multiples of 2^-10
+    in [-15, 15] * 2^-10 (``smooth``: uniform in the same range), from a
+    seed of the leaf, rank and step; zero at ``ZERO_LEAF[model]``."""
+    out = {}
+    for k, v in tree.items():
+        p = path + (k,)
+        if isinstance(v, dict):
+            out[k] = grid_grads(v, model, rank, step, smooth, p)
+        elif p == ZERO_LEAF[model]:
+            out[k] = np.zeros(np.shape(v), np.float32)
+        else:
+            rs = np.random.RandomState(hash_seed(*p, rank, step))
+            g = rs.uniform(-15, 15, np.shape(v)) if smooth else \
+                rs.randint(-15, 16, np.shape(v))
+            out[k] = (g * 2.0 ** -10).astype(np.float32)
+    return out
+
+
+# XLA fuses the int8 exchange's dequantize-and-sum and its quantizer and
+# rounds them in other last bits than any plain order of torch ops does;
+# where that moves a value across the halfway point between two int8
+# levels, the result differs by one level: about 5 in a million elements
+# per quantization. ZeRO-1 also quantizes the update, the new shard less
+# the old, whose last bits differ by far more relative to it: there up to
+# 6 in 10,000 elements flip. A block layout other than the reference's
+# moves a third to two thirds of them.
+INT8_FLIP_RATE = 1e-3
+
+
+def int8_mismatches(got: dict, want: dict, tol: dict) -> tuple:
+    """``(elements outside tol, elements in all, largest difference
+    there)`` of two dicts of arrays."""
+    bad = total = 0
+    worst = 0.0
+    for n, w in want.items():
+        d = np.abs(got[n] - w)
+        out = d > tol["atol"] + tol["rtol"] * np.abs(w)
+        bad += int(out.sum())
+        total += w.size
+        worst = max(worst, float(d[out].max()) if out.any() else 0.0)
+    return bad, total, worst
+
+
+def port_model(model: str):
+    """The port's model of that name, fp32."""
+    from horovod_tpu_torch.models import BertEncoder, MnistConvNet
+    from horovod_tpu_torch.models.gpt import GptDecoder
+    from horovod_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    if model == "gpt":
+        return GptDecoder(dtype=torch.float32, **GPT_CFG)
+    if model == "bert":
+        return BertEncoder(dtype=torch.float32, **BERT_CFG)
+    if model == "resnet":
+        return ResNet(block_cls=BottleneckBlock, **RESNET_CFG)
+    return MnistConvNet()
+
+
+def from_flax(model: str, tree: dict) -> dict:
+    from horovod_tpu_torch.models import convert
+    return {"gpt": convert.from_flax_params, "bert": convert.from_flax_bert,
+            "mnist": convert.from_flax_mnist,
+            "resnet": convert.from_flax_resnet}[model](tree)
+
+
+def given_grads_loss(model, batch):
+    """A loss whose gradient is ``batch["g"]`` (this rank's slice): the
+    inner product of the parameters with it."""
+    g = batch["g"]
+    total = sum((p * g[n][0]).sum() for n, p in model.named_parameters()
+                if n in g)
+    return total, {}
+
+
+# name -> (optimizer, compression, op, backward passes, average the
+# aggregate, predivide factor)
+DOPT_CONFIGS = {
+    "sgd": ("sgd", "none", "Average", 1, True, 1.0),
+    "adamw": ("adamw", "none", "Average", 1, True, 1.0),
+    "sgd_sum": ("sgd", "none", "Sum", 1, True, 1.0),
+    "sgd_fp16": ("sgd", "fp16", "Average", 1, True, 1.0),
+    "adamw_bf16": ("adamw", "bf16", "Average", 1, True, 1.0),
+    "sgd_int8": ("sgd", "int8", "Average", 1, True, 1.0),
+    "adamw_int8": ("adamw", "int8", "Average", 1, True, 1.0),
+    "sgd_adasum": ("sgd", "none", "Adasum", 1, True, 1.0),
+    "sgd_bpps2": ("sgd", "none", "Average", 2, True, 1.0),
+    "adamw_bpps2_sum": ("adamw", "none", "Average", 2, False, 1.0),
+    "sgd_bf16_bpps2_sum": ("sgd", "bf16", "Average", 2, False, 1.0),
+    "sgd_predivide": ("sgd", "none", "Average", 1, True, 2.0),
+    "adamw_int8_predivide_bpps2": ("adamw", "int8", "Average", 2, True,
+                                   2.0),
+}
+# the configurations each model runs
+DOPT_MODELS = {"mnist": tuple(DOPT_CONFIGS),
+               "gpt": ("adamw", "sgd_fp16", "adamw_int8", "sgd_adasum",
+                       "adamw_bpps2_sum", "adamw_int8_predivide_bpps2")}
+DOPT_LR = {"sgd": 0.05, "adamw": 1e-2}
+DOPT_WD = 0.1
+
+
+def dopt_optimizer(name: str, params):
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=DOPT_LR["sgd"], momentum=0.9)
+    return torch.optim.AdamW(params, lr=DOPT_LR["adamw"],
+                             weight_decay=DOPT_WD)
+
+
+def dopt_run(model_name: str, tree: dict, cfg: str, rank: int, world: int,
+             steps: int = GRAD_STEPS, resume_at: int = -1) -> dict:
+    """``steps`` microsteps of DistributedOptimizer over the given grid
+    gradients of this rank; the parameters after each (``k|name``). With
+    ``resume_at`` k the run goes on after microstep k from a fresh model
+    and optimizer loaded from the state_dicts."""
+    import horovod_tpu_torch as hvd
+    opt_name, wire, op, bpps, avg, pre = DOPT_CONFIGS[cfg]
+
+    def build(state):
+        model = port_model(model_name).to(_device())
+        model.load_state_dict(state)
+        opt = hvd.DistributedOptimizer(
+            dopt_optimizer(opt_name, model.parameters()),
+            op=getattr(hvd, op), compression=getattr(hvd.Compression, wire),
+            backward_passes_per_step=bpps, average_aggregated_gradients=avg,
+            gradient_predivide_factor=pre)
+        return model, opt
+    model, opt = build(from_flax(model_name, tree))
+    zero_key = ZERO_KEY[model_name]
+    out = {}
+    for k in range(steps):
+        grads = from_flax(model_name, grid_grads(tree, model_name, rank, k,
+                                                 smooth=wire == "int8"))
+        for n, p in model.named_parameters():
+            p.grad = None if n == zero_key else grads[n].to(p.device)
+        opt.step()
+        opt.zero_grad()
+        out.update({f"{k}|{n}": _np(p).copy()
+                    for n, p in model.named_parameters()})
+        if k == resume_at:
+            saved = opt.state_dict()
+            model, opt = build(model.state_dict())
+            opt.load_state_dict(saved)
+    return out
+
+
+def mnist_tree(seed: int = 3) -> dict:
+    """flax-shaped MNIST weights without JAX: the port's init from
+    ``seed``, laid out back as the flax tree (for the card tests)."""
+    from horovod_tpu_torch.models import MnistConvNet
+    model = MnistConvNet()
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    tree = {}
+    for j in range(2):
+        tree[f"Conv_{j}"] = {
+            "kernel": np.transpose(sd[f"conv{j}.weight"], (2, 3, 1, 0)),
+            "bias": sd[f"conv{j}.bias"]}
+        tree[f"Dense_{j}"] = {"kernel": sd[f"dense{j}.weight"].T.copy(),
+                              "bias": sd[f"dense{j}.bias"]}
+    return tree
+
+
+def run_dist_opt(rank: int, world: int, trees: dict) -> dict:
+    """Every configuration of DOPT_MODELS of the models of ``trees``:
+    ``model|cfg|k|name``."""
+    out = {}
+    for model_name, tree in trees.items():
+        for cfg in DOPT_MODELS[model_name]:
+            res = dopt_run(model_name, tree, cfg, rank, world)
+            out.update({f"{model_name}|{cfg}|{k}": v for k, v in res.items()})
+    return out
+
+
+# the int8 steps of the layout tests: name -> (sharded_update,
+# bucket_bytes); 16 KiB cuts each model into several buckets
+LAYOUT_STEPS = {"replicated": (False, 0), "replicated_bucketed": (False, 1 << 14),
+                "zero1": (True, 0), "zero1_bucketed": (True, 1 << 14)}
+LAYOUT_MODELS = ("gpt", "bert", "resnet")
+
+
+def layout_step_run(model_name: str, tree: dict, world: int, sharded: bool,
+                    bound: int, compression: str = "int8",
+                    opt_name: str = "sgd", steps: int = 2) -> dict:
+    """``steps`` make_train_step steps of the model from the flax weights
+    ``tree``, on the given grid gradients (this rank's slice of each
+    rank's), with the int8 wire (or ``compression``): the parameters."""
+    from horovod_tpu_torch import Compression
+    from horovod_tpu_torch.parallel import dp, zero
+    model = port_model(model_name)
+    model.load_state_dict(from_flax(model_name, tree), strict=False)
+    zero_key = ZERO_KEY[model_name]
+
+    def make(ps):
+        return dopt_optimizer(opt_name, ps)
+    opt = zero.sharded_optimizer(model, make, bucket_bytes=bound) \
+        if sharded else make(model.parameters())
+    step = dp.make_train_step(
+        model, given_grads_loss, opt, device=_device(),
+        compression=getattr(Compression, compression),
+        sharded_update=sharded, bucket_bytes=bound)
+    for k in range(steps):
+        per_rank = [from_flax(model_name, grid_grads(
+            tree, model_name, r, k, smooth=compression == "int8"))
+            for r in range(world)]
+        g = {n: torch.stack([pr[n] for pr in per_rank])
+             for n in per_rank[0] if n != zero_key}
+        step(dp.shard_batch({"g": g}))
+    return {n: _np(p) for n, p in model.named_parameters()}
+
+
+def run_layout(rank: int, world: int, trees: dict) -> dict:
+    """Every LAYOUT_STEPS step of every LAYOUT_MODELS model, and the AdamW
+    step with an unused parameter (``zero_fill|sharded``):
+    ``model|step|name``."""
+    out = {}
+    for model_name in LAYOUT_MODELS:
+        for name, (sharded, bound) in LAYOUT_STEPS.items():
+            res = layout_step_run(model_name, trees[model_name], world,
+                                  sharded, bound)
+            out.update({f"{model_name}|{name}|{k}": v
+                        for k, v in res.items()})
+    for sharded in (False, True):
+        res = layout_step_run("mnist", trees["mnist"], world, sharded, 0,
+                              compression="none", opt_name="adamw")
+        out.update({f"zero_fill|{int(sharded)}|{k}": v
+                    for k, v in res.items()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the broadcast and object helpers (tests/test_torch_functions.py)
+
+def run_functions(rank: int, world: int) -> dict:
+    """broadcast_parameters of a state_dict, a tensor list and named
+    parameters; broadcast_optimizer_state from a root that has stepped to
+    ranks that have not (and of a DistributedOptimizer mid-accumulation);
+    broadcast_object, allgather_object and metric_average. The root is the
+    last rank."""
+    import json
+    import horovod_tpu_torch as hvd
+    root = world - 1
+    out = {}
+    torch.manual_seed(100 + rank)
+    model = torch.nn.Sequential(torch.nn.Linear(4, 3), torch.nn.Linear(3, 2))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=root)
+    out.update({f"sd/{n}": _np(p).copy() for n, p in model.named_parameters()})
+    tensors = [torch.full((2, 2), float(rank)), torch.arange(3) + rank]
+    hvd.broadcast_parameters(tensors, root_rank=root)
+    out.update({f"list/{i}": _np(t) for i, t in enumerate(tensors)})
+    other = torch.nn.Linear(2, 2)
+    with torch.no_grad():
+        other.weight.fill_(rank)
+    hvd.broadcast_parameters(other.named_parameters(), root_rank=root)
+    out["named/weight"] = _np(other.weight).copy()
+    opt = torch.optim.AdamW(model.parameters(), lr=0.1 * (rank + 1),
+                            weight_decay=0.01)
+    if rank == root:
+        for _ in range(2):
+            opt.zero_grad()
+            model(torch.ones(1, 4)).sum().backward()
+            opt.step()
+    hvd.broadcast_optimizer_state(opt, root_rank=root)
+    state = opt.state_dict()
+    out["opt/lr"] = np.array(state["param_groups"][0]["lr"])
+    for i, st in state["state"].items():
+        for k, v in st.items():
+            out[f"opt/{i}/{k}"] = _np(v) if torch.is_tensor(v) \
+                else np.array(v)
+            if k == "step":
+                out[f"opt/{i}/step_on_cpu"] = np.array(v.device.type == "cpu")
+    dopt = hvd.DistributedOptimizer(torch.optim.SGD(
+        other.parameters(), lr=0.1, momentum=0.9),
+        backward_passes_per_step=2)
+    if rank == root:
+        other(torch.ones(1, 2)).sum().backward()
+        dopt.step()  # one microstep: accumulated, not applied
+    hvd.broadcast_optimizer_state(dopt, root_rank=root)
+    dstate = dopt.state_dict()
+    out["dopt/count"] = np.array(dstate["count"])
+    out["dopt/accum0"] = _np(dstate["accum"][0])
+    obj = {"rank": rank, "tags": ["a", "b"][:rank + 1]}
+    out["object"] = np.array(json.dumps(hvd.broadcast_object(obj, root)))
+    out["gathered"] = np.array(json.dumps(hvd.allgather_object(
+        "x" * (rank + 1))))
+    out["metric_average"] = _np(hvd.metric_average(float(rank + 1)))
+    return out
+
+
 def worker(rank: int, world: int, store_path: str, out_path: str,
            job: str, job_args: tuple = (), mesh=None,
            device: str = "cpu") -> None:
@@ -817,4 +1295,6 @@ def spawn(world: int, tmp_dir, job: str, job_args: tuple = (),
 JOBS = {"collectives": run_collectives, "dp": run_dp_step,
         "collectives_more": run_more_collectives, "stateful": run_stateful,
         "bert_dp": run_bert_dp_step, "bucketing": run_bucketing,
-        "zero": run_zero, "adasum": run_adasum}
+        "zero": run_zero, "adasum": run_adasum, "eager": run_eager,
+        "eager_adasum": run_eager_adasum, "dist_opt": run_dist_opt,
+        "layout": run_layout, "functions": run_functions}
