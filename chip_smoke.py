@@ -21,7 +21,11 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                block, Tq != Tk, ragged lengths, a single tile, one q tile
                against 1024 keys, rows with no visible key under 512-row
                reference tiles, and return_lse with a dlse cotangent, o
-               compared on every row; then
+               compared on every row; the parallel path's shapes: the
+               world-1 ring's one call (B=1, T=32768, H=12, causal) and
+               one of four ranks' ring shards (T=8192, dlse) at the
+               global offsets of rank 3's blocks (k at 0, 16384 and 24576
+               with q at 24576) and of a block wholly in the future; then
                flash_attention's autograd on the card (offsets, dlse)
                against float64 attention;
 5. parity    - a small fp32 GptDecoder at T=1024 on the card, flash
@@ -30,8 +34,12 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 6. timing    - each kernel, its plain version and torch's
                scaled_dot_product_attention forward and backward (yardstick
                only; the port never calls it) beside the bound, each the
-               median of 5 turns: at the GPT-2-small shape (causal) and at
-               the BERT-Large shape (non-causal, all T^2 pairs);
+               median of 5 turns: at the GPT-2-small shape (causal), at
+               the BERT-Large shape (non-causal, all T^2 pairs) and at two
+               blocks of one of four ranks' ring shard (B=1, T=8192, H=12,
+               causal, q at global position 24576): its diagonal block (k
+               at 24576) and an off-diagonal one (k at 0, every pair
+               visible, against SDPA without a mask);
 7. crossover - dense against flash attention, forward plus backward, over
                the key length (the routing threshold DEFAULT_FLASH_MIN_SEQ);
 8. train     - the main path: init() on NCCL, GptSmall (bf16 compute, fp32
@@ -80,10 +88,28 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                steps on one fixed batch from seed 0 (the configuration of
                examples/jax/jax_synthetic_benchmark.py); the loss must be
                finite and fall and every running statistic must have moved
-               and stay finite and fp32. It runs no flash kernel.
+               and stay finite and fp32. It runs no flash kernel;
+13. parallel - the sequence, tensor, pipeline and expert axes at world 1
+               on NCCL, at GPT-2 small's widths, each forward+backward
+               against the single-card computation (errors, median ms of
+               5, peak memory, flash launches): ring attention on the flash
+               kernels at B=1, T=32768, H=12, D=64, bf16, causal (bit-equal
+               to one flash_attention call, outputs and q/k/v gradients),
+               the plain ring at T=8192 against dense_attention, Ulysses
+               on the flash kernels at T=32768 (bit-equal); tp_mlp and
+               tp_mlp_inference (fp32 and int8 wires) at x [8, 1024, 768]
+               against the dense MLP; pipeline_apply of GPT-2 small's 12
+               causal blocks at batch 8 x seq 1024, n_micro 8, against the
+               blocks in order (outputs and the stage's gradients);
+               moe_layer on 8192 tokens, 8 experts of hidden 3072,
+               capacity factor 1.25 (no token dropped) and 0.5 (some must
+               be), against the dense per-token MoE.
 
-Then the kernels line (launches per path: gpt, frontend, bert, resnet), the
-nvidia-smi line, and the final
+The train, frontend, bert and resnet lines carry the port's MFU
+(profiler/mfu.py ``mfu_report``: FLOPs per token or image from
+FlopCounterMode plus the flash kernels' share, over the card's bf16 peak),
+which must lie in (0, 1]. Then the kernels line (launches per path: gpt,
+frontend, bert, resnet, parallel), the nvidia-smi line, and the final
 ``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes the nvcc
 logs there; ``--profile`` adds one profiled GPT train step, one profiled
 BERT-Large step per option set and one profiled ResNet-50 step (device
@@ -180,8 +206,10 @@ def tolerances(dtype):
 
 NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the kernel cases at the shapes the main paths give the kernels (GPT-2
-# small causal, BERT-Large non-causal): the kernels line's max_abs_err
-MAIN_PATH_CASES = ("main_bf16_causal", "bertlarge_bf16_full")
+# small causal, BERT-Large non-causal, the world-1 ring's one call): the
+# kernels line's max_abs_err
+MAIN_PATH_CASES = ("main_bf16_causal", "bertlarge_bf16_full",
+                   "par_bf16_t32768_causal")
 
 
 def kernel_resources():
@@ -270,6 +298,10 @@ def kernel_cases():
     bert = dict(b=BERT_SHAPE["b"], tq=BERT_SHAPE["t"], tk=BERT_SHAPE["t"],
                 h=BERT_SHAPE["h"], d=BERT_SHAPE["d"], bq=512, bk=512,
                 dtype=bf16)
+    par = dict(b=PAR["b"], tq=PAR["t"], tk=PAR["t"], h=PAR["h"], d=PAR["d"],
+               bq=512, bk=512, causal=True, dtype=bf16)
+    shard = dict(par, tq=RING_SHARD["t"], tk=RING_SHARD["t"], dlse=True)
+    t = float(RING_SHARD["t"])
     return [
         dict(name="main_bf16_causal", causal=True, **m),
         dict(name="main_bf16_full", causal=False, **m),
@@ -321,6 +353,20 @@ def kernel_cases():
         dict(name="bf16_d64_dead_rows_512", b=1, tq=1024, tk=1024, h=2,
              d=64, bq=512, bk=512, causal=True, q_off=-10.0, dtype=bf16,
              seed=14),
+        # the parallel path: the world-1 ring's one call over the whole
+        # sequence, and the shards four ranks' rings give the kernels, with
+        # the merge's lse cotangent: rank 3's queries against keys wholly
+        # visible (from rank 0), from rank 2 and its own diagonal, and rank
+        # 2's queries against rank 3's keys, wholly in the future
+        dict(name="par_bf16_t32768_causal", seed=18, **par),
+        dict(name="ring_shard_q24576_k0", q_off=3 * t, k_off=0.0, seed=19,
+             **shard),
+        dict(name="ring_shard_q24576_k16384", q_off=3 * t, k_off=2 * t,
+             seed=20, **shard),
+        dict(name="ring_shard_q24576_k24576", q_off=3 * t, k_off=3 * t,
+             seed=21, **shard),
+        dict(name="ring_shard_q16384_k24576_future", q_off=2 * t,
+             k_off=3 * t, future=True, seed=22, **shard),
     ]
 
 
@@ -408,13 +454,14 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bounds(b, t, h, d, causal, dtype_name):
+def bounds(b, t, h, d, causal, dtype_name, q_off=0.0, k_off=0.0):
     """Least time (ms) per kernel: each input read once and each output
     written once at the memory rate, against the products this run's data
-    needs (only the causally visible q-k pairs) at the tensor-core rate.
-    The exp and elementwise work is not counted."""
+    needs (only the causally visible q-k pairs, at these offsets) at the
+    tensor-core rate. The exp and elementwise work is not counted."""
+    from horovod_tpu_torch.profiler.flops import attention_pairs
     esize = 2 if dtype_name == "bfloat16" else 4
-    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    pairs = b * h * attention_pairs(t, t, causal, q_off, k_off)
     x = b * t * h * d * esize          # one [B, T, H, D] tensor
     row = b * h * t * 4                # one [B, H, T] fp32 tensor
     work = {  # name -> (bytes, flops)
@@ -435,18 +482,28 @@ def bounds(b, t, h, d, causal, dtype_name):
 TURNS = 5  # every reported time is the median of this many turns
 
 
-def timing(device, shape=MAIN, causal=True):
+def timing(device, shape=MAIN, causal=True, q_off=0.0, k_off=0.0):
     """Each kernel, its plain version and the SDPA yardstick at ``shape``
-    (bf16). Kernel and plain version alternate turn by turn; each time is
-    the median of TURNS turns (a kernel turn is 50 launches)."""
+    (bf16), with q and k at global positions ``q_off`` and ``k_off``: a
+    ring shard's diagonal block (equal offsets, the same function as
+    offset 0, which SDPA computes causally) or a block whose every pair is
+    visible (SDPA without a mask). Kernel and plain version alternate turn
+    by turn; each time is the median of TURNS turns (a kernel turn is 50
+    launches)."""
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.profiler.flops import attention_pairs
+    t = shape["t"]
+    every_pair = attention_pairs(t, t, causal, q_off, k_off) == t * t
+    if causal and q_off != k_off and not every_pair:
+        raise ValueError("SDPA has no mask for a block at these offsets")
+    sdpa_causal = causal and not every_pair
     case = dict(name="timing", causal=causal, b=shape["b"], tq=shape["t"],
                 tk=shape["t"], h=shape["h"], d=shape["d"], bq=512, bk=512,
                 dtype=torch.bfloat16)
     q, k, v, do, dlse = kernel_inputs(case, device)
-    args = (causal, shape["d"] ** -0.5, 0.0, 0.0, 512, 512)
+    args = (causal, shape["d"] ** -0.5, q_off, k_off, 512, 512)
     o, lse = fa.flash_fwd(q, k, v, *args)
     corr = (dlse - (do.float() * o.float()).sum(-1).transpose(1, 2)) \
         .contiguous()
@@ -473,11 +530,11 @@ def timing(device, shape=MAIN, causal=True):
     # its backward alone is autograd.grad on a retained graph
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=sdpa_causal)
     fwd_t, bwd_t = [], []
     for _ in range(TURNS):
         fwd_t.append(time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=causal), 50))
+            qh, kh, vh, is_causal=sdpa_causal), 50))
         bwd_t.append(time_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), doh, retain_graph=True), 50))
     sdpa_fwd, sdpa_bwd = statistics.median(fwd_t), statistics.median(bwd_t)
@@ -487,7 +544,7 @@ def timing(device, shape=MAIN, causal=True):
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         res[name].update(library_ms=None, library_ms_joint=sdpa_bwd)
     bnd = bounds(shape["b"], shape["t"], shape["h"], shape["d"], causal,
-                 "bfloat16")
+                 "bfloat16", q_off, k_off)
     for name, (ms, by, nbytes, flops) in bnd.items():
         res[name].update(bound_ms=ms, bound_by=by, bytes=nbytes,
                          flops=flops, share_of_bound=ms / res[name]["ms"])
@@ -642,14 +699,15 @@ def train(device, profile_dir=None, profile=False):
         model = GptSmall(dtype=torch.bfloat16)
         model.reset_parameters(torch.Generator().manual_seed(0))
         n_params = sum(p.numel() for p in model.parameters())
+        tokens = torch.randint(0, 50257, (MAIN["b"] * hvd.size(), MAIN["t"]),
+                               generator=torch.Generator().manual_seed(0))
+        batch = dp.shard_batch(tokens).to(hvd.device())
+        est = step_flops(lm_loss, model.to(hvd.device()), batch)
         opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
                                 betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=1e-4)
         step = dp.make_train_step(model, lm_loss, opt,
                                   compression=hvd.Compression.bf16)
-        tokens = torch.randint(0, 50257, (MAIN["b"] * hvd.size(), MAIN["t"]),
-                               generator=torch.Generator().manual_seed(0))
-        batch = dp.shard_batch(tokens).to(hvd.device())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
@@ -674,12 +732,14 @@ def train(device, profile_dir=None, profile=False):
         raise AssertionError(f"train: launches {counts}, want {want} each")
     steady = step_ms[1:]
     mean_ms = sum(steady) / len(steady)
-    return counts, prof, {
+    tokens = MAIN["b"] * MAIN["t"]
+    return counts, prof, est, {
         "phase": "train", "model": "GptSmall", "params": n_params,
         "batch": MAIN["b"], "seq": MAIN["t"], "steps": STEPS,
         "losses": losses, "step_ms": step_ms,
         "steady_step_ms": mean_ms,
-        "tokens_per_s": MAIN["b"] * MAIN["t"] / (mean_ms / 1e3),
+        "tokens_per_s": tokens / (mean_ms / 1e3),
+        "mfu": mfu_entry(est, tokens, tokens / (mean_ms / 1e3)),
         "peak_mem_bytes": peak, "launches": counts,
         "backend": "nccl", "world_size": 1}
 
@@ -723,6 +783,13 @@ def collectives_check(device):
                 ("ppermute_identity", c.ppermute(x, [(0, 0)]), x),
                 ("ppermute_empty", c.ppermute(x, []), torch.zeros_like(x)),
                 ("broadcast", c.broadcast(x, 0, axis=("data", "fsdp")), x),
+                # the other mesh axes, each of size 1 here
+                ("allreduce_model", c.allreduce(x, op=c.Sum, axis="model"),
+                 x),
+                ("alltoall_seq", c.alltoall(x, axis="seq"), x),
+                ("ppermute_pipe", c.ppermute(x, [(0, 0)], axis="pipe"), x),
+                ("allgather_expert_seq",
+                 c.allgather(x, axis=("expert", "seq")), x),
             ]
             pairs += [("allgather_fsdp", c.allgather(x, axis="fsdp"), x),
                       ("allgather_data_fsdp",
@@ -1056,9 +1123,12 @@ def frontend_mnist(device):
             "steps": FRONT["mnist_steps"], "losses": losses}
 
 
-def frontend(device, card):
+def frontend(device, card, gpt_flops):
     """The frontend phase: the eager ops, their latency, GPT-2 small and
-    MNIST through DistributedOptimizer, at world 1 on NCCL."""
+    MNIST through DistributedOptimizer, at world 1 on NCCL. ``gpt_flops``
+    is one forward and backward of GPT-2 small at the train phase's batch
+    (``step_flops``): a step of ``FRONT["bpps"]`` microsteps does it that
+    many times."""
     import horovod_tpu_torch as hvd
     hvd.init()
     try:
@@ -1068,6 +1138,11 @@ def frontend(device, card):
         mnist = frontend_mnist(device)
     finally:
         hvd.shutdown()
+    step_s = ((FRONT["bpps"] - 1) * gpt["accumulate_microstep_ms"] +
+              gpt["boundary_microstep_ms"]) / 1e3
+    tokens = MAIN["b"] * MAIN["t"]
+    gpt["tokens_per_s"] = FRONT["bpps"] * tokens / step_s
+    gpt["mfu"] = mfu_entry(gpt_flops, tokens, gpt["tokens_per_s"])
     return counts, {"phase": "frontend", "nvidia_smi": card,
                     "backend": "nccl", "world_size": 1,
                     "eager_checked": len(checked), "eager_cases": checked,
@@ -1244,6 +1319,10 @@ def bert(device, profile_dir=None, profile=False):
             0, BERT["vocab"], (n, t))) for k in ("tokens", "labels")})
         batch = {k: v.to(hvd.device()) for k, v in batch.items()}
         checks = bert_grad_checks(state, batch, device)
+        from horovod_tpu_torch.models.transformer import mlm_loss
+        est = step_flops(mlm_loss, bert_model(state, device), batch)
+        gc.collect()
+        torch.cuda.empty_cache()
         for name, opts in BERT_SETS:
             model = bert_model(state, device)
             step = bert_step(model, opts)
@@ -1293,6 +1372,8 @@ def bert(device, profile_dir=None, profile=False):
                 "steps": STEPS, "losses": losses, "step_ms": step_ms,
                 "steady_step_ms": mean_ms,
                 "tokens_per_s": BERT["batch"] * t / (mean_ms / 1e3),
+                "mfu": mfu_entry(est, BERT["batch"] * t,
+                                 BERT["batch"] * t / (mean_ms / 1e3)),
                 "peak_mem_bytes": peak, "launches": counts,
                 "buckets": units,
                 "buckets_launched_before_backward_end": early,
@@ -1337,13 +1418,14 @@ def resnet(device, profile_dir=None, profile=False):
         def loss_fn(m, b):
             return F.cross_entropy(m(b["image"], train=True),
                                    b["label"]), {}
-        step = dp.make_stateful_train_step(model, loss_fn, opt)
         n, sz = RESNET["batch"] * hvd.size(), RESNET["image"]
         rs = np.random.RandomState(0)
         batch = dp.shard_batch({
             "image": torch.tensor(rs.rand(n, sz, sz, 3)).to(torch.bfloat16),
             "label": torch.tensor(rs.randint(0, RESNET["classes"], n))})
         batch = {k: v.to(hvd.device()) for k, v in batch.items()}
+        est = step_flops(loss_fn, model.to(hvd.device()), batch)
+        step = dp.make_stateful_train_step(model, loss_fn, opt)
         before = {k: b.clone() for k, b in model.named_buffers()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1386,9 +1468,372 @@ def resnet(device, profile_dir=None, profile=False):
         "optimizer": "SGD(lr=0.05, momentum=0.9)", "steps": STEPS,
         "losses": losses, "step_ms": step_ms, "steady_step_ms": mean_ms,
         "images_per_s": RESNET["batch"] / (mean_ms / 1e3),
+        "mfu": mfu_entry(est, RESNET["batch"],
+                         RESNET["batch"] / (mean_ms / 1e3)),
         "peak_mem_bytes": peak, "running_stats_moved": len(after),
         "flash_launches": counts, "bound_step_ms": bound_ms,
         "backend": "nccl", "world_size": 1}
+
+
+# ---------------------------------------------------------------------------
+# MFU of the training paths (profiler/flops.py, profiler/mfu.py)
+
+
+def step_flops(loss_fn, model, batch):
+    """``train_step_flops`` of one forward and backward of ``loss_fn(model,
+    batch)`` (aten ops plus the flash kernels' share), on a model that no
+    train step's hooks watch yet; it leaves no gradient behind. Its flash
+    launches are not a path's: count them outside a counted window."""
+    from horovod_tpu_torch.profiler import flops
+
+    def run():
+        loss_fn(model, batch)[0].backward()
+        model.zero_grad(set_to_none=True)
+    return flops.train_step_flops(run, ())
+
+
+def mfu_entry(est, items, items_per_s) -> dict:
+    """The port's ``mfu_report`` for a path: the FLOPs ``est`` of one
+    forward and backward of ``items`` items (tokens, images), at
+    ``items_per_s``, over the card's bf16 peak. A value outside (0, 1]
+    fails the run."""
+    from horovod_tpu_torch.profiler import flops, mfu
+    per_item = flops.FlopsEstimate(est.flops / items, est.source,
+                                   est.detail)
+    rep = mfu.mfu_report(items_per_s, per_item, mfu.peak_tflops())
+    if not 0 < rep["mfu"] <= 1:
+        raise AssertionError(f"mfu {rep} is outside (0, 1]")
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# the remaining parallelism (sequence, tensor, pipeline, expert axes) at
+# GPT-2 small's widths. Each function runs at the world of the job's mesh
+# (1 here, 4 in tests/test_torch_cuda_dist.py), computes the single-card
+# result on its own card from the same seeded inputs, and compares this
+# rank's part of it.
+
+PAR = dict(b=1, t=32768, t_plain=8192, h=12, d=64)  # long-context attention
+RING_SHARD = dict(b=1, t=8192, h=12, d=64)  # one of 4 ranks' ring shard
+TP_MLP = dict(batch=8, seq=1024, hidden=768, mlp=3072)
+PIPE = dict(batch=8, seq=1024, n_micro=8, layers=12)
+# cf 1.25 keeps every token at these sizes; cf_drop 0.5 (half the mean
+# load per expert) must drop some, so the dropped tokens' zeros are checked
+MOE = dict(tokens=8192, hidden=768, experts=8, mlp=3072, cf=1.25,
+           cf_drop=0.5)
+FP32_FWD, FP32_GRAD = (2e-4, 2e-5), (2e-3, 2e-4)
+BF16_TOL = (2e-2, 1e-6, 2e-2, 1e-2)  # rtol, atol, row atol, normwise
+
+
+def _shard(x, dim, rank, n):
+    per = x.shape[dim] // n
+    return x.narrow(dim, rank * per, per)
+
+
+def _counted(run, counts):
+    """``run()`` once with the launch counters from 0, its launches added
+    to ``counts``: the result, this run's launches and peak memory."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    got = fa.launch_counts()
+    for k, v in got.items():
+        counts[k] += v
+    return out, got, torch.cuda.max_memory_allocated()
+
+
+def _compare(name, got, want, tol) -> dict:
+    """``close`` over the keys of ``want``: {key: [max abs, normwise]}."""
+    return {k: list(close(f"{name}/{k}", got[k].detach(), want[k].detach(),
+                          *tol)) for k in want}
+
+
+def _par_time(run) -> dict:
+    ts = [time_ms(run, 1, warmup=1) for _ in range(TURNS)]
+    return {"ms": statistics.median(ts), "ms_turns": ts}
+
+
+def par_attention(device, counts, kind, use_flash, t):
+    """Ring or Ulysses attention over ``seq`` at total length ``t`` (bf16,
+    causal, GPT-2 small's 12 heads of 64), the loss sum(o * w) for a fixed
+    random w; against one ``flash_attention`` call (flash) or
+    ``dense_attention`` (plain) on the full sequence: at world 1 the flash
+    paths bit-equal, else within bf16 tolerances."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import collectives as c, sp
+    n, r = c.axis_size("seq"), c.axis_rank("seq")
+    g = torch.Generator().manual_seed(7)
+    full = [torch.randn(PAR["b"], t, PAR["h"], PAR["d"], generator=g)
+            .to(device, torch.bfloat16) for _ in range(4)]
+    mine = [_shard(x, 1, r, n).detach().requires_grad_(i < 3)
+            for i, x in enumerate(full)]
+    fn = sp.ring_attention if kind == "ring" else sp.ulysses_attention
+
+    def run():
+        o = fn(*mine[:3], causal=True, use_flash=use_flash)
+        grads = torch.autograd.grad((o * mine[3]).float().sum(), mine[:3])
+        return dict(zip(("o", "dq", "dk", "dv"), (o,) + grads))
+    got, launches, peak = _counted(run, counts)
+    ref_in = [x.detach().requires_grad_(True) for x in full[:3]]
+    ref_fn = fa.flash_attention if use_flash else fa.dense_attention
+    o = ref_fn(*ref_in, causal=True)
+    grads = torch.autograd.grad((o * full[3]).float().sum(), ref_in)
+    want = {k: _shard(x, 1, r, n) for k, x in
+            zip(("o", "dq", "dk", "dv"), (o,) + grads)}
+    del o, grads, ref_in
+    name = f"{kind}_{'flash' if use_flash else 'plain'}"
+    entry = {"name": name, "shape": [PAR["b"], t, PAR["h"], PAR["d"]],
+             "dtype": "bfloat16", "causal": True, "world": n,
+             "comparison": ref_fn.__name__, "flash_launches": launches,
+             "peak_mem_bytes": peak}
+    if use_flash and n == 1:
+        same = {k: bool(torch.equal(got[k], want[k])) for k in want}
+        if not all(same.values()):
+            raise AssertionError(f"parallel/{name}: not bit-equal to one "
+                                 f"flash_attention call at world 1: {same}")
+        entry.update(tolerance="bit-equal",
+                     err={k: [0.0, 0.0] for k in want})
+    else:
+        entry.update(tolerance=BF16_TOL,
+                     err=_compare(f"parallel/{name}", got, want, BF16_TOL))
+    del got, want
+    torch.cuda.empty_cache()
+    entry.update(_par_time(run))
+    return entry
+
+
+def par_tp(device, counts):
+    """``tp_mlp`` over ``model`` (fp32, x [8, 1024, 768], W [768, 3072]
+    and [3072, 768] sliced as the reference's PartitionSpecs) against the
+    dense MLP, forward and gradients; ``tp_mlp_inference`` with the fp32
+    wire and with the int8 wire, the int8 one held to the quantizer's own
+    bound: half a step (max|block| / 127 / 2) per quantization, bounded
+    with the tensors' maxima by (sum over ranks of max|partial| + max|y|)
+    / 127, which is the reference's 2 max|x| / 127 at world 1."""
+    import torch
+    from horovod_tpu_torch import Compression
+    from horovod_tpu_torch.parallel import collectives as c, tp
+    n, r = c.axis_size("model"), c.axis_rank("model")
+    g = torch.Generator().manual_seed(8)
+    hid, mlp = TP_MLP["hidden"], TP_MLP["mlp"]
+    shape = (TP_MLP["batch"], TP_MLP["seq"], hid)
+    x = torch.randn(*shape, generator=g).to(device)
+    w_in = (torch.randn(hid, mlp, generator=g) * hid ** -0.5).to(device)
+    w_out = (torch.randn(mlp, hid, generator=g) * mlp ** -0.5).to(device)
+    w = torch.randn(*shape, generator=g).to(device)
+    mine = [x.clone().requires_grad_(True),
+            _shard(w_in, 1, r, n).clone().requires_grad_(True),
+            _shard(w_out, 0, r, n).clone().requires_grad_(True)]
+
+    def run():
+        y = tp.tp_mlp(*mine)
+        grads = torch.autograd.grad((y * w).sum(), mine)
+        return dict(zip(("y", "dx", "dw_in", "dw_out"), (y,) + grads))
+    got, launches, peak = _counted(run, counts)
+    ref = [v.clone().requires_grad_(True) for v in (x, w_in, w_out)]
+    y = tp.gelu_tanh(ref[0] @ ref[1]) @ ref[2]
+    dx, dwi, dwo = torch.autograd.grad((y * w).sum(), ref)
+    y = y.detach()
+    err = _compare("parallel/tp_mlp", got, {"y": y}, FP32_FWD)
+    err.update(_compare("parallel/tp_mlp", got, {
+        "dx": dx, "dw_in": _shard(dwi, 1, r, n),
+        "dw_out": _shard(dwo, 0, r, n)}, FP32_GRAD))
+    with torch.no_grad():
+        fp32 = tp.tp_mlp_inference(x, *mine[1:])
+        int8 = tp.tp_mlp_inference(x, *mine[1:],
+                                   compression=Compression.int8)
+        partial_max = sum(
+            float((tp.gelu_tanh(x @ _shard(w_in, 1, s, n)) @
+                   _shard(w_out, 0, s, n)).abs().max()) for s in range(n))
+    bound = (partial_max + float(y.abs().max())) / 127
+    err["inference_fp32"] = list(close("parallel/tp_mlp_inference fp32",
+                                       fp32, y, *FP32_FWD))
+    err["inference_int8"] = list(close("parallel/tp_mlp_inference int8",
+                                       int8, y, 0.0, bound))
+    del got, ref, dx, dwi, dwo
+    entry = {"name": "tp_mlp", "x": list(shape), "w_in": [hid, mlp],
+             "w_out": [mlp, hid], "dtype": "float32", "world": n,
+             "tolerance": {"fwd": FP32_FWD, "grad": FP32_GRAD,
+                           "int8_atol": bound},
+             "comparison": "dense MLP", "err": err,
+             "flash_launches": launches, "peak_mem_bytes": peak}
+    entry.update(_par_time(run))
+    return entry
+
+
+def par_pipeline(device, counts):
+    """``pipeline_apply`` over ``pipe``: GPT-2 small's 12 causal blocks
+    (flax's initializers from seed 9) split evenly into the stages (one
+    stage of 12 at world 1), batch 8 x seq 1024 of bf16 activations,
+    n_micro 8, the loss sum(out * w); against the 12 blocks applied in
+    order to the whole batch: outputs and the stage parameters'
+    gradients, within bf16 tolerances."""
+    import copy
+    import torch
+    from horovod_tpu_torch.models.transformer import (EncoderBlock,
+                                                      reset_blocks_)
+    from horovod_tpu_torch.parallel import collectives as c, pp
+    n, r = c.axis_size("pipe"), c.axis_rank("pipe")
+    blocks = torch.nn.ModuleList(
+        EncoderBlock(768, 12, 3072, torch.bfloat16, use_flash=True,
+                     causal=True) for _ in range(PIPE["layers"]))
+    reset_blocks_(blocks, torch.Generator().manual_seed(9))
+    blocks.to(device)
+    per = len(blocks) // n
+    mine = blocks[r * per:(r + 1) * per]
+    stage = torch.nn.Sequential(*copy.deepcopy(list(mine)))
+    g = torch.Generator().manual_seed(10)
+    shape = (PIPE["batch"], PIPE["seq"], 768)
+    x = torch.randn(*shape, generator=g).to(device, torch.bfloat16)
+    w = torch.randn(*shape, generator=g).to(device, torch.bfloat16)
+    params = list(stage.parameters())
+
+    def run():
+        out = pp.pipeline_apply(lambda m, h: m(h), stage, x,
+                                n_micro=PIPE["n_micro"])
+        grads = torch.autograd.grad((out * w).float().sum(), params)
+        return out, grads
+    (out, grads), launches, peak = _counted(run, counts)
+    h = x
+    for blk in blocks:
+        h = blk(h)
+    ref_grads = torch.autograd.grad((h * w).float().sum(),
+                                    list(mine.parameters()))
+    err = _compare("parallel/pipeline", {"out": out}, {"out": h.detach()},
+                   BF16_TOL)
+    # the stage's gradients as one vector, each element within bf16
+    # tolerance of the vector's largest: some have a true value of zero
+    # (the key bias: softmax ignores a shift shared by a row's scores)
+    # and are rounding noise of either side's bf16 products
+    got_g = torch.cat([gr.flatten() for gr in grads])
+    want_g = torch.cat([gr.flatten() for gr in ref_grads])
+    grad_atol = BF16_TOL[2] * float(want_g.abs().max())
+    err["stage_param_grads"] = list(close(
+        "parallel/pipeline/grad", got_g, want_g, BF16_TOL[0], grad_atol,
+        0.0, BF16_TOL[3]))
+    del out, grads, h, ref_grads, got_g, want_g
+    entry = {"name": "pipeline", "stages": n, "blocks_per_stage": per,
+             "x": list(shape), "dtype": "bfloat16",
+             "n_micro": PIPE["n_micro"], "world": n,
+             "tolerance": {"out": BF16_TOL,
+                           "grads": [BF16_TOL[0], grad_atol, 0.0,
+                                     BF16_TOL[3]]},
+             "comparison": "blocks in order",
+             "err": err, "flash_launches": launches,
+             "peak_mem_bytes": peak}
+    entry.update(_par_time(run))
+    return entry
+
+
+def par_moe(device, counts, cf=MOE["cf"], must_drop=False):
+    """``moe_layer`` over ``expert`` (fp32, 8192 tokens of 768 in all, 8
+    experts of hidden 3072 split evenly over the ranks, capacity factor
+    ``cf``) against the dense per-token reference (every expert on every
+    token, top-1 selected and scaled by its gate): equal on the tokens the
+    routing keeps, zero on those it drops; gradients of sum(out * w) with
+    the dense reference masked the same way (w_gate's summed over the
+    ranks, as the reference's test psums it). With ``must_drop``, the
+    routing must drop some token."""
+    import torch
+    from horovod_tpu_torch.parallel import collectives as c, ep, tp
+    n, r = c.axis_size("expert"), c.axis_rank("expert")
+    g = torch.Generator().manual_seed(11)
+    t, hid, e, mlp = MOE["tokens"], MOE["hidden"], MOE["experts"], \
+        MOE["mlp"]
+    x = torch.randn(t, hid, generator=g).to(device)
+    w_gate = (torch.randn(hid, e, generator=g) * hid ** -0.5).to(device)
+    w_in = (torch.randn(e, hid, mlp, generator=g) * hid ** -0.5).to(device)
+    w_out = (torch.randn(e, mlp, hid, generator=g) * mlp ** -0.5) \
+        .to(device)
+    w = torch.randn(t, hid, generator=g).to(device)
+    mine = [_shard(x, 0, r, n).clone().requires_grad_(True),
+            w_gate.clone().requires_grad_(True),
+            _shard(w_in, 0, r, n).clone().requires_grad_(True),
+            _shard(w_out, 0, r, n).clone().requires_grad_(True)]
+    w_mine = _shard(w, 0, r, n)
+
+    def run():
+        out = ep.moe_layer(*mine, capacity_factor=cf)
+        grads = torch.autograd.grad((out * w_mine).sum(), mine)
+        return dict(zip(("out", "dx", "dw_gate", "dw_in", "dw_out"),
+                        (out,) + grads))
+    got, launches, peak = _counted(run, counts)
+    got["dw_gate"] = c.allreduce(got["dw_gate"], op=c.Sum, axis="expert")
+    # the tokens each source rank's routing keeps, at its own capacity
+    cap = max(1, int(cf * (t // n) / e))
+    with torch.no_grad():
+        keep = torch.cat([
+            ep.top1_dispatch(torch.softmax(_shard(x, 0, s, n) @ w_gate, -1),
+                             cap)[0].sum((1, 2)) > 0 for s in range(n)])
+    dropped = t - int(keep.sum())
+    if must_drop and not dropped:
+        raise AssertionError(f"parallel/moe: capacity factor {cf} dropped "
+                             "no token")
+    ref = [v.clone().requires_grad_(True) for v in (x, w_gate, w_in, w_out)]
+    gates = torch.softmax(ref[0] @ ref[1], dim=-1)
+    act = tp.gelu_tanh(torch.einsum("td,edh->teh", ref[0], ref[2]))
+    sel = torch.einsum("teh,ehd->ted", act, ref[3])[
+        torch.arange(t, device=device), gates.argmax(-1)]
+    dense = sel * (gates.amax(-1) * keep)[:, None]
+    grads = torch.autograd.grad((dense * w).sum(), ref)
+    kept = _shard(keep, 0, r, n)
+    if not bool((got["out"][~kept] == 0).all()):
+        raise AssertionError("parallel/moe: a dropped token is not zero")
+    err = _compare("parallel/moe", got,
+                   {"out": _shard(dense.detach(), 0, r, n)}, FP32_FWD)
+    err.update(_compare("parallel/moe", got, {
+        "dx": _shard(grads[0], 0, r, n), "dw_gate": grads[1],
+        "dw_in": _shard(grads[2], 0, r, n),
+        "dw_out": _shard(grads[3], 0, r, n)}, FP32_GRAD))
+    del got, ref, gates, act, sel, dense, grads
+    torch.cuda.empty_cache()
+    entry = {"name": "moe" if cf == MOE["cf"] else f"moe_cf{cf}",
+             "tokens": t, "hidden": hid, "experts": e,
+             "experts_per_rank": e // n, "expert_hidden": mlp,
+             "capacity_factor": cf, "capacity": cap,
+             "kept_tokens": t - dropped, "dropped_tokens": dropped,
+             "dtype": "float32",
+             "world": n, "tolerance": {"fwd": FP32_FWD, "grad": FP32_GRAD},
+             "comparison": "dense per-token MoE", "err": err,
+             "flash_launches": launches, "peak_mem_bytes": peak}
+    entry.update(_par_time(run))
+    return entry
+
+
+def parallel_entries(device, counts) -> list:
+    """Every strategy at GPT-2 small's widths, at the job's world: each
+    on the mesh axis it runs over, so the job's mesh gives that axis the
+    world (here every axis has size 1)."""
+    return [par_attention(device, counts, "ring", True, PAR["t"]),
+            par_attention(device, counts, "ring", False, PAR["t_plain"]),
+            par_attention(device, counts, "ulysses", True, PAR["t"]),
+            par_tp(device, counts), par_pipeline(device, counts),
+            par_moe(device, counts),
+            par_moe(device, counts, MOE["cf_drop"], must_drop=True)]
+
+
+def parallel(device, card):
+    """The parallel phase at world 1 on NCCL."""
+    import horovod_tpu_torch as hvd
+    counts = {k: 0 for k in NAMES}
+    hvd.init()
+    try:
+        entries = parallel_entries(device, counts)
+    finally:
+        hvd.shutdown()
+    # the rings' and Ulysses' one launch each, the pipeline's blocks on
+    # every tick
+    want = 2 + PIPE["layers"] * PIPE["n_micro"]
+    if counts != {k: want for k in counts}:
+        raise AssertionError(f"parallel: launches {counts}, want {want} "
+                             "each")
+    return counts, {"phase": "parallel", "nvidia_smi": card,
+                    "backend": "nccl", "world_size": 1, "entries": entries}
 
 
 def main() -> int:
@@ -1450,16 +1895,27 @@ def main() -> int:
     bert_times, bert_sdpa = timing(device, BERT_SHAPE, causal=False)
     emit({"phase": "timing", "shape": BERT_SHAPE, "dtype": "bfloat16",
           "causal": False, "kernels": bert_times, **bert_sdpa})
+    # the last of four ranks' ring blocks: its diagonal, and the keys of
+    # rank 0, every pair visible
+    ring_times = {}
+    for key, k_off in (("ring_shard", 3.0), ("ring_shard_offdiag", 0.0)):
+        q_off, k_off = 3.0 * RING_SHARD["t"], k_off * RING_SHARD["t"]
+        ring_times[key], ring_sdpa = timing(device, RING_SHARD, causal=True,
+                                            q_off=q_off, k_off=k_off)
+        emit({"phase": "timing", "shape": RING_SHARD, "dtype": "bfloat16",
+              "causal": True, "q_offset": q_off, "k_offset": k_off,
+              "kernels": ring_times[key], **ring_sdpa})
     emit(crossover(device))
 
     counts = {}
-    counts["gpt"], prof, train_line = train(device, opts.out, opts.profile)
+    counts["gpt"], prof, gpt_flops, train_line = train(device, opts.out,
+                                                       opts.profile)
     emit(train_line)
     if prof is not None:
         emit(prof)
 
     emit(collectives_check(device))
-    counts["frontend"], front_line = frontend(device, card)
+    counts["frontend"], front_line = frontend(device, card, gpt_flops)
     emit(front_line)
     counts["bert"], bert_lines, profs = bert(device, opts.out, opts.profile)
     for line in bert_lines + profs:
@@ -1469,6 +1925,8 @@ def main() -> int:
     emit(resnet_line)
     if prof is not None:
         emit(dict(prof, model="ResNet50"))
+    counts["parallel"], par_line = parallel(device, card)
+    emit(par_line)
 
     kernels = []
     for name in NAMES:
@@ -1488,6 +1946,9 @@ def main() -> int:
             "bert_shape": {k: tb[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_ms_joint")},
+            **{key: {k: tr[name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_ms_joint")} for key, tr in ring_times.items()},
             "registers": res["registers"], "smem_bytes": res["smem_bytes"],
             "blocks_per_sm": res["blocks_per_sm"]})
     emit({"kernels": kernels})

@@ -62,7 +62,7 @@ def measure() -> dict:
         kernels[name] = {"ms": statistics.median(turns), "ms_turns": turns}
     del q, k, v, do, o, lse, corr
     torch.cuda.empty_cache()
-    _, _, line = cs.train(device)
+    line = cs.train(device)[-1]  # the train line, last in every version
     return {"kernels": kernels, "steady_step_ms": line["steady_step_ms"],
             "step_ms": line["step_ms"], "tokens_per_s": line["tokens_per_s"],
             "losses": line["losses"]}

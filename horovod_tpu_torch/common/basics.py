@@ -8,9 +8,9 @@ launcher env contract (``HOROVOD_RANK``, ``HOROVOD_SIZE``,
 builds a device mesh, the port runs one process per GPU and creates a
 ``torch.distributed`` process group: NCCL on the card, gloo for
 ``device="cpu"``. The group exists even at world size 1, so the gradient
-allreduce always runs through the same backend. ``init()`` also creates one
-subgroup per replica axis (``data``, ``fsdp``) of the mesh spec, which the
-collectives map their ``axis`` argument to, and the two groups of the
+allreduce always runs through the same backend. ``init()`` also creates the
+subgroups of the mesh spec's axes that the collectives map their ``axis``
+argument to (``parallel/mesh.py`` ``group_sets``), and the two groups of the
 eager ops (``common/eager.py``): a gloo control group for the name
 negotiation and a data group on the step's backend, apart from the default
 group so that an eager launch never interleaves with the step's
@@ -30,8 +30,9 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.common.env import env_int
 from horovod_tpu_torch.parallel.mesh import (AXIS_ORDER, REPLICA_AXES,
-                                             MeshSpec, axis_index,
-                                             replica_groups)
+                                             MeshSpec, axis_groups,
+                                             axis_index, group_key,
+                                             group_sets)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,8 +60,8 @@ class _Context:
         self.cross_rank = 0
         self.cross_size = 1
         self.device: Optional[torch.device] = None
-        # replica axes in AXIS_ORDER -> (process group, None for the whole
-        # world; the group's global ranks in ascending order)
+        # a set of axes of group_sets -> (process group, None for the
+        # whole world; the group's global ranks in ascending order)
         self.groups: dict = {}
         self.sizes: dict = {}  # axis -> size
         # the eager ops' process groups: (gloo control, data)
@@ -119,18 +120,22 @@ class _Context:
 
 
 def _axis_groups(sizes: dict, rank: int) -> dict:
-    """This rank's process group for each set of replica axes. A set whose
-    one group is the whole world uses the default group; the others are
-    created with ``new_subgroups_by_enumeration``, which every rank calls
-    for every set, in the same order, as ``torch.distributed`` requires."""
-    out = {}
-    for axes, groups in replica_groups(sizes).items():
+    """This rank's process group for each set of axes of ``group_sets``. A
+    set whose one group is the whole world uses the default group; the
+    others are created with ``new_subgroups_by_enumeration``, which every
+    rank calls for every set, in the same order, as ``torch.distributed``
+    requires. Sets that split the ranks alike share one."""
+    out, made = {}, {}
+    for axes in group_sets(sizes):
+        groups = axis_groups(sizes, axes)
         mine = next(g for g in groups if rank in g)
         if len(groups) == 1:
             out[axes] = (None, mine)
-        else:
-            group, _ = dist.new_subgroups_by_enumeration(groups)
-            out[axes] = (group, mine)
+            continue
+        key = tuple(map(tuple, groups))
+        if key not in made:
+            made[key] = dist.new_subgroups_by_enumeration(groups)[0]
+        out[axes] = (made[key], mine)
     return out
 
 
@@ -203,23 +208,23 @@ def cross_size() -> int:
 
 
 def num_replicas() -> int:
-    """Total data-parallel replicas (reference basics.py:340-357): one GPU
-    per process, so the product of the replica axes' sizes, which is the
-    world size."""
+    """Total data-parallel replicas (reference basics.py:340-357): the
+    product of the replica axes' sizes. It is the world size only when
+    ``model``, ``seq``, ``pipe`` and ``expert`` all have size 1."""
     _require_init()
     return math.prod(_ctx.sizes[a] for a in REPLICA_AXES)
 
 
 def axis_group(axes: Tuple[str, ...]) -> Tuple[Optional[dist.ProcessGroup],
                                                List[int]]:
-    """The process group of replica axes ``axes`` (each named once, in
-    any order) that holds this rank, ``None`` for the whole world, and its
+    """The process group of mesh axes ``axes`` (each named once, in any
+    order) that holds this rank, ``None`` for the whole world, and its
     global ranks in axis index order: row-major over ``axes`` in the order
     given, as ``lax.axis_index`` of a tuple. The group is the same set of
     ranks whatever the order; only the order of the list changes."""
     _require_init()
     canonical = tuple(sorted(axes, key=AXIS_ORDER.index))
-    group, ranks = _ctx.groups[canonical]
+    group, ranks = _ctx.groups[group_key(_ctx.sizes, canonical)]
     if axes != canonical:
         ranks = sorted(ranks, key=lambda r: axis_index(_ctx.sizes, r, axes))
     return group, ranks

@@ -51,6 +51,7 @@ from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.env import env_float, env_int
 from horovod_tpu_torch.common.reduce_ops import (Adasum, Average, Max, Min,
                                                  Op, Product, Sum)
+from horovod_tpu_torch.profiler.annotate import host_annotation
 
 ALLREDUCE, ALLGATHER, BROADCAST, ALLTOALL, BARRIER = (
     "allreduce", "allgather", "broadcast", "alltoall", "barrier")
@@ -250,7 +251,7 @@ class EagerExecutor:
             handle._ready.record(torch.cuda.current_stream(tensor.device))
         req = Request(name, op_type, _dtype_name(tensor.dtype),
                       tuple(tensor.shape), **fields)
-        with self._cv:
+        with host_annotation(f"hvd_enqueue:{name}"), self._cv:
             if self._stop:
                 raise HorovodInternalError(
                     self._failure or "horovod_tpu_torch is shut down")
@@ -388,18 +389,10 @@ class EagerExecutor:
             return
         first = next(iter(batch[0][1].values()))
         try:
-            if self._stream is None:
-                results = self._run(first, batch, handles)
-                event = None
-            else:
-                with torch.cuda.stream(self._stream):
-                    for h in handles:
-                        if h is not None and h._ready is not None:
-                            self._stream.wait_event(h._ready)
-                            h._input.record_stream(self._stream)
-                    results = self._run(first, batch, handles)
-                    event = torch.cuda.Event()
-                    event.record(self._stream)
+            # the span of the reference's engine callback: executing one
+            # negotiated response on the data plane
+            with host_annotation(f"hvd_engine_exec:{first.op_type}"):
+                results, event = self._execute(first, batch, handles)
         except Exception as err:  # noqa: BLE001 - the op fails, not the loop
             for h in handles:
                 if h is not None:
@@ -408,6 +401,20 @@ class EagerExecutor:
         for h, (result, aux) in zip(handles, results):
             if h is not None:
                 h._finish(result=result, event=event, aux=aux)
+
+    def _execute(self, first: Request, batch, handles):
+        """(each op's ``(result, aux)``, the completion event or None)."""
+        if self._stream is None:
+            return self._run(first, batch, handles), None
+        with torch.cuda.stream(self._stream):
+            for h in handles:
+                if h is not None and h._ready is not None:
+                    self._stream.wait_event(h._ready)
+                    h._input.record_stream(self._stream)
+            results = self._run(first, batch, handles)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return results, event
 
     # -- the data plane (negotiation thread, on the side stream) -----------
 
@@ -666,7 +673,9 @@ def synchronize(handle, timeout: float = 0.0):
     op's completion event, so the host does not block on the card."""
     if isinstance(handle, LocalHandle):
         return handle.result
-    if not handle._launched.wait(timeout if timeout > 0 else None):
+    with host_annotation(f"hvd_negotiate_wait:{handle.name}"):
+        launched = handle._launched.wait(timeout if timeout > 0 else None)
+    if not launched:
         raise HorovodInternalError(
             f"timed out after {timeout} s waiting for {handle.name}")
     if handle._error:

@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from horovod_tpu_torch.common.env import env_int
+from horovod_tpu_torch.profiler.flops import flash_launch
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps exp() NaN-free
 
@@ -293,21 +294,22 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float, q_off: float = 0.0,
     """Forward kernel: (o [B,Tq,H,Dv] in q's dtype, lse [B,H,Tq] fp32)."""
     tensors = {"q": q, "k": k, "v": v}
     _check_shapes("flash_fwd", tensors)
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal, sm_scale, q_off, k_off,
-                               block_q, block_k)
-    _require_cuda("flash_fwd", q)
-    code = _check_cuda("flash_fwd", tensors)
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    bq, bk = _reference_tiling(tq, tk, block_q, block_k)
-    _launch("hvd_flash_fwd", "flash_fwd", q.device, code, d, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h,
-            tq, tk, int(causal), sm_scale, q_off, k_off, bq, bk)
-    flash_fwd.launches += 1
-    return o, lse
+    with flash_launch("flash_fwd", q, k, causal, q_off, k_off):
+        if q.device.type == "cpu":
+            return flash_fwd_plain(q, k, v, causal, sm_scale, q_off, k_off,
+                                   block_q, block_k)
+        _require_cuda("flash_fwd", q)
+        code = _check_cuda("flash_fwd", tensors)
+        b, tq, h, d = q.shape
+        tk = k.shape[1]
+        o = torch.empty_like(q)
+        lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+        bq, bk = _reference_tiling(tq, tk, block_q, block_k)
+        _launch("hvd_flash_fwd", "flash_fwd", q.device, code, d, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h,
+                tq, tk, int(causal), sm_scale, q_off, k_off, bq, bk)
+        flash_fwd.launches += 1
+        return o, lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, corr, causal: bool, sm_scale: float,
@@ -316,20 +318,21 @@ def flash_bwd_dq(q, k, v, do, lse, corr, causal: bool, sm_scale: float,
     """dq kernel: dq [B,Tq,H,D] in q's dtype."""
     tensors = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "corr": corr}
     _check_shapes("flash_bwd_dq", tensors)
-    if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, lse, corr, causal, sm_scale,
-                                  q_off, k_off, block_q, block_k)
-    _require_cuda("flash_bwd_dq", q)
-    code = _check_cuda("flash_bwd_dq", tensors)
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    dq = torch.empty_like(q)
-    _launch("hvd_flash_bwd_dq", "flash_bwd_dq", q.device, code, d,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), corr.data_ptr(), dq.data_ptr(), b, h, tq, tk,
-            int(causal), sm_scale, q_off, k_off)
-    flash_bwd_dq.launches += 1
-    return dq
+    with flash_launch("flash_bwd_dq", q, k, causal, q_off, k_off):
+        if q.device.type == "cpu":
+            return flash_bwd_dq_plain(q, k, v, do, lse, corr, causal, sm_scale,
+                                      q_off, k_off, block_q, block_k)
+        _require_cuda("flash_bwd_dq", q)
+        code = _check_cuda("flash_bwd_dq", tensors)
+        b, tq, h, d = q.shape
+        tk = k.shape[1]
+        dq = torch.empty_like(q)
+        _launch("hvd_flash_bwd_dq", "flash_bwd_dq", q.device, code, d,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), corr.data_ptr(), dq.data_ptr(), b, h, tq, tk,
+                int(causal), sm_scale, q_off, k_off)
+        flash_bwd_dq.launches += 1
+        return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, corr, causal: bool, sm_scale: float,
@@ -338,20 +341,23 @@ def flash_bwd_dkv(q, k, v, do, lse, corr, causal: bool, sm_scale: float,
     """dk/dv kernel: (dk, dv), each [B,Tk,H,D] in k's/v's dtype."""
     tensors = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "corr": corr}
     _check_shapes("flash_bwd_dkv", tensors)
-    if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, lse, corr, causal, sm_scale,
-                                   q_off, k_off, block_q, block_k)
-    _require_cuda("flash_bwd_dkv", q)
-    code = _check_cuda("flash_bwd_dkv", tensors)
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("hvd_flash_bwd_dkv", "flash_bwd_dkv", q.device, code, d,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), corr.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-            h, tq, tk, int(causal), sm_scale, q_off, k_off)
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    with flash_launch("flash_bwd_dkv", q, k, causal, q_off, k_off):
+        if q.device.type == "cpu":
+            return flash_bwd_dkv_plain(q, k, v, do, lse, corr, causal,
+                                       sm_scale, q_off, k_off, block_q,
+                                       block_k)
+        _require_cuda("flash_bwd_dkv", q)
+        code = _check_cuda("flash_bwd_dkv", tensors)
+        b, tq, h, d = q.shape
+        tk = k.shape[1]
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _launch("hvd_flash_bwd_dkv", "flash_bwd_dkv", q.device, code, d,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), corr.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), b, h, tq, tk, int(causal), sm_scale, q_off,
+                k_off)
+        flash_bwd_dkv.launches += 1
+        return dk, dv
 
 
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)

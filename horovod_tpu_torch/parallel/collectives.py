@@ -1,16 +1,28 @@
-"""Collectives over the job's replica axes.
+"""Collectives over the job's mesh axes.
 
 Counterpart of ``horovod_tpu/parallel/collectives.py``. The reference
 expresses collectives inside a compiled program over named mesh axes; the
 port issues ``torch.distributed`` collectives (NCCL on the card, gloo on the
-CPU) over the process group of the named replica axes: ``"data"``,
-``"fsdp"`` or both, as a tuple in either order, which is the whole world
-(``init()`` creates the groups). A tuple indexes the replicas row-major in
-the order it names the axes, as ``lax.axis_index`` of a tuple does: the
+CPU) over the process group of the named axes: any of ``AXIS_ORDER``
+(``"data"``, ``"fsdp"``, ``"model"``, ``"seq"``, ``"pipe"``,
+``"expert"``), or a tuple of them in any order (``init()`` creates the
+groups). Over an axis of size 1 each collective returns its one replica's
+value, as ``lax`` does. A tuple indexes the replicas row-major in the
+order it names the axes, as ``lax.axis_index`` of a tuple does: the
 gathers, exchanges, scatters, ``broadcast``'s root and ``axis_rank`` follow
 that order (``ppermute``, like ``lax.ppermute``, keeps the mesh's order).
 The functions are functional, as in the reference: the input tensor is
-left unchanged and the result is a new tensor.
+left unchanged and the result is a new tensor. Each runs inside
+``profiler.annotate.collective_scope`` under the reference's name
+(``hvd_allreduce_sum``, ``hvd_alltoall``, ...).
+
+JAX differentiates through ``lax.ppermute`` and ``lax.all_to_all`` for
+free; a ``torch.distributed`` call records nothing for autograd, so a
+gradient through it would be silently zero. :func:`ppermute` and
+:func:`alltoall` are therefore ``torch.autograd.Function``s: the backward
+of a permutation is the inverse permutation, that of an all-to-all the
+all-to-all with ``split_axis`` and ``concat_axis`` swapped. Every rank
+must run the backward, as every rank ran the forward.
 
 ``allreduce``, ``hierarchical_allreduce``, ``reducescatter`` and the int8
 ``quantized_reducescatter``/``quantized_allreduce`` take ``async_op=True``:
@@ -35,7 +47,8 @@ from horovod_tpu_torch.common.reduce_ops import (  # noqa: F401 (re-exported)
 from horovod_tpu_torch.compression import (block_dequantize_rows,
                                            block_quantize_rows)
 from horovod_tpu_torch.ops.fusion import fused_apply
-from horovod_tpu_torch.parallel.mesh import AXIS_ORDER, REPLICA_AXES
+from horovod_tpu_torch.parallel.mesh import AXIS_ORDER
+from horovod_tpu_torch.profiler.annotate import collective_scope
 
 DEFAULT_AXIS = "data"
 
@@ -73,18 +86,39 @@ def _complete(works, finish, async_op: bool, keep=()):
 
 
 def _axes(axis) -> tuple:
-    """``axis`` as a tuple of replica axes, each named once, in the order
-    given; any other axis raises."""
+    """``axis`` as a tuple of mesh axes, each named once, in the order
+    given; a name outside ``AXIS_ORDER`` raises."""
     axes = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
-    bad = [a for a in axes if a not in REPLICA_AXES]
+    bad = [a for a in axes if a not in AXIS_ORDER]
     if bad:
-        raise NotImplementedError(
-            f"axis {axis!r}: only the replica axes {REPLICA_AXES} are "
-            "supported so far; see ROADMAP.md queue A, 'Remaining "
-            "parallelism'")
+        raise ValueError(f"axis {axis!r}: {bad} not among the mesh axes "
+                         f"{AXIS_ORDER}")
     if not axes or len(set(axes)) != len(axes):
-        raise ValueError(f"axis {axis!r}: name each replica axis once")
+        raise ValueError(f"axis {axis!r}: name each mesh axis once")
     return axes
+
+
+def _scoped(prefix: str, ops: Optional[tuple] = None):
+    """Run the decorated collective inside ``collective_scope(prefix)``,
+    or, with ``ops``, ``prefix_{op}`` when its ``op`` (the second
+    argument, Average by default) is one of ``ops``, and unnamed
+    otherwise (where the reference hands the op to another collective)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def scoped(*args, **kwargs):
+            name = prefix
+            if ops is not None:
+                op = args[1] if len(args) > 1 else kwargs.get("op", Average)
+                if op not in ops:
+                    return fn(*args, **kwargs)
+                name = f"{prefix}_{op.value}"
+            with collective_scope(name):
+                return fn(*args, **kwargs)
+        return scoped
+    return wrap
+
+
+_ALL_OPS = (Average, Sum, Adasum, Min, Max, Product)
 
 
 def _group(axis):
@@ -139,6 +173,7 @@ def axis_rank(axis=DEFAULT_AXIS) -> int:
     return _group(axis)[1].index(basics.rank())
 
 
+@_scoped("hvd_allreduce", _ALL_OPS)
 def allreduce(x: torch.Tensor,
               op: Op = Average,
               axis=DEFAULT_AXIS,
@@ -217,6 +252,7 @@ def grouped_allreduce(xs: Sequence[torch.Tensor],
     return fused_apply(fn, xs)
 
 
+@_scoped("hvd_hierarchical_allreduce", (Average, Sum))
 def hierarchical_allreduce(x: torch.Tensor,
                            op: Op = Average,
                            outer_axis="data",
@@ -279,6 +315,7 @@ def _all_gather(x: torch.Tensor, group, n: int, pos=None) -> torch.Tensor:
     return _to_index_order(out.reshape(n, *x.shape), pos).reshape(out.shape)
 
 
+@_scoped("hvd_allgather")
 def allgather(x: torch.Tensor, axis=DEFAULT_AXIS) -> torch.Tensor:
     """Concatenate ``x`` from every replica along dim 0, in axis order
     (reference collectives.py:218-230; equal shapes)."""
@@ -286,6 +323,7 @@ def allgather(x: torch.Tensor, axis=DEFAULT_AXIS) -> torch.Tensor:
     return _all_gather(x, group, len(ranks), _group_order(ranks))
 
 
+@_scoped("hvd_broadcast")
 def broadcast(x: torch.Tensor, root_rank: int = 0,
               axis=DEFAULT_AXIS) -> torch.Tensor:
     """``x`` as held by the replica with index ``root_rank`` on ``axis``,
@@ -296,13 +334,31 @@ def broadcast(x: torch.Tensor, root_rank: int = 0,
     return out
 
 
+@_scoped("hvd_alltoall")
 def alltoall(x: torch.Tensor,
              axis=DEFAULT_AXIS,
              split_axis: int = 0,
              concat_axis: int = 0) -> torch.Tensor:
     """Split ``x`` into equal slices along ``split_axis``, send slice i to
     replica i, and concatenate the slices received along ``concat_axis`` in
-    axis order (reference collectives.py:248-258, ``tiled=True``)."""
+    axis order (reference collectives.py:248-258, ``tiled=True``).
+    Differentiable: the gradient goes back by the swapped all-to-all."""
+    return _AllToAll.apply(x, axis, split_axis, concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_axis, concat_axis):
+        ctx.args = (axis, concat_axis, split_axis)
+        return _alltoall(x, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        with collective_scope("hvd_alltoall"):
+            return _alltoall(g, *ctx.args), None, None, None
+
+
+def _alltoall(x, axis, split_axis, concat_axis):
     group, ranks = _group(axis)
     n = len(ranks)
     split_axis %= x.dim()
@@ -321,6 +377,7 @@ def alltoall(x: torch.Tensor,
                      dim=concat_axis)
 
 
+@_scoped("hvd_reducescatter", _ALL_OPS)
 def reducescatter(x: torch.Tensor, op: Op = Average,
                   axis=DEFAULT_AXIS, async_op: bool = False):
     """Reduce over the replicas and keep this replica's slice of dim 0
@@ -347,6 +404,7 @@ def reducescatter(x: torch.Tensor, op: Op = Average,
     return _complete([work], finish, async_op, keep=(send,))
 
 
+@_scoped("hvd_quantized_reducescatter", _ALL_OPS)
 def quantized_reducescatter(x: torch.Tensor,
                             op: Op = Average,
                             axis=DEFAULT_AXIS,
@@ -387,6 +445,7 @@ def quantized_reducescatter(x: torch.Tensor,
                      keep=(payload, scales))
 
 
+@_scoped("hvd_quantized_allgather")
 def quantized_allgather(x: torch.Tensor,
                         axis=DEFAULT_AXIS,
                         block_size: int = 256) -> torch.Tensor:
@@ -449,9 +508,25 @@ def ppermute(x: torch.Tensor, perm, axis=DEFAULT_AXIS) -> torch.Tensor:
     (reference collectives.py:366-369). Unlike ``axis_rank``,
     ``lax.ppermute`` numbers the replicas of a tuple in the mesh's own
     axis order (data before fsdp) whatever order the tuple names, and so
-    does this."""
-    group, ranks = _group(sorted(_axes(axis), key=AXIS_ORDER.index))
+    does this. Differentiable: the gradient goes back along the inverse
+    permutation."""
     perm = [(int(s), int(d)) for s, d in perm]
+    return _PPermute.apply(x, perm, axis)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, axis):
+        ctx.args = ([(d, s) for s, d in perm], axis)
+        return _ppermute(x, perm, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, *ctx.args), None, None
+
+
+def _ppermute(x: torch.Tensor, perm, axis) -> torch.Tensor:
+    group, ranks = _group(sorted(_axes(axis), key=AXIS_ORDER.index))
     srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
     n = len(ranks)
     if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or \

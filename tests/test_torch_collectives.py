@@ -105,18 +105,21 @@ def test_broadcast_replicate_and_axis_queries_world2(world2):
 
 
 def test_unported_ops_raise(world1):
-    """The axes beyond the replica axes are not ported; Adasum is (at world
-    1 it returns its input), and Product is an allreduce case above."""
+    """Every op and axis is ported: Adasum at world 1 returns its input
+    (Product is an allreduce case above), and an allreduce over "model",
+    an axis of size 1 here, is the identity, as lax.psum over a size-1
+    axis is; an unknown axis name raises."""
     from horovod_tpu_torch.parallel import collectives as c
     x = torch.tensor([1.5, -2.0])
     assert torch.equal(c.allreduce(x, op=c.Adasum), x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.allreduce(torch.ones(2), axis="model")
+    for op in (c.Sum, c.Average, c.Max):
+        assert torch.equal(c.allreduce(x, op=op, axis="model"), x)
+    with pytest.raises(ValueError, match="mesh axes"):
+        c.allreduce(torch.ones(2), axis="tensor")
 
 
 def test_mesh_spec_supports_data_axis_only():
-    """The replica axes, data and fsdp, resolve as in the reference; the
-    other axes still raise."""
+    """Every axis resolves as in the reference, alone and with others."""
     from horovod_tpu_torch.parallel.mesh import AXIS_ORDER, MeshSpec
     assert AXIS_ORDER == mesh_lib.AXIS_ORDER
     assert MeshSpec().resolve(4) == mesh_lib.MeshSpec().resolve(4)
@@ -124,7 +127,9 @@ def test_mesh_spec_supports_data_axis_only():
         mesh_lib.MeshSpec(data=2, fsdp=2).resolve(4)
     assert MeshSpec(fsdp=4).resolve(8) == mesh_lib.MeshSpec(fsdp=4).resolve(8)
     for axis in ("model", "seq", "pipe", "expert"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MeshSpec(data=2, **{axis: 2}).resolve(4)
+        assert MeshSpec(data=2, **{axis: 2}).resolve(4) == \
+            mesh_lib.MeshSpec(data=2, **{axis: 2}).resolve(4)
+        assert MeshSpec(data=-1, **{axis: 4}).resolve(8) == \
+            mesh_lib.MeshSpec(data=-1, **{axis: 4}).resolve(8)
     with pytest.raises(ValueError):
         MeshSpec(data=3).resolve(4)

@@ -136,8 +136,9 @@ def test_replica_groups_layout():
 
 def test_unsupported_arguments_raise():
     """Adasum and a reversed axis tuple run (at world 1 both give the
-    input); the axes beyond the replica axes, a repeated axis and the
-    reference's own refusals raise."""
+    input), and so does every other mesh axis (size 1 here: the input);
+    an unknown axis, a repeated axis and the reference's own refusals
+    raise."""
     from horovod_tpu_torch.parallel import collectives as c
     hvd.init(device="cpu")
     try:
@@ -147,8 +148,10 @@ def test_unsupported_arguments_raise():
                            x[0])
         assert torch.equal(c.allreduce(x, axis=("fsdp", "data")), x)
         assert c.axis_rank(("fsdp", "data")) == 0
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            c.allgather(torch.ones(2), axis="model")
+        assert torch.equal(c.allgather(x, axis="model"), x)
+        assert torch.equal(c.allgather(x, axis=("seq", "data")), x)
+        with pytest.raises(ValueError, match="mesh axes"):
+            c.allgather(torch.ones(2), axis="tensor")
         with pytest.raises(ValueError, match="once"):
             c.allreduce(torch.ones(2), axis=("data", "data"))
         with pytest.raises(ValueError, match="Sum/Average"):

@@ -14,7 +14,14 @@ op and dtype, out-of-order submission, the three join cases, the ragged
 allgather, a dtype mismatch) and DistributedOptimizer over its whole
 option matrix on MNIST (tests/test_torch_eager.py and
 test_torch_distributed_optimizer.py hold them on gloo against the
-reference). Imports torch and the port only (no JAX):
+reference); at world 4 the sequence, tensor, pipeline and expert
+parallelism of the CPU tests (test_torch_sequence_parallel.py,
+test_torch_tp_pp.py, test_torch_expert_parallel.py) against gloo, and
+chip_smoke.py's parallel entries at full size with each axis spanning the
+four cards, each rank against one card's result on its own card (they
+raise on disagreement; their numbers land in
+chiprun_out/torch_cuda_dist_parallel_<axis>.json where that directory
+exists). Imports torch and the port only (no JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_dist.py -q
 
@@ -211,3 +218,74 @@ def test_nccl_distributed_optimizer_world4_matches_gloo(tmp_path):
                 continue
             for k in keys:
                 np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
+
+
+PAR_AXES = {"sp": "seq", "tp": "model", "pp": "pipe", "ep": "expert"}
+
+
+def par_tolerance(job: str, key: str, want) -> dict:
+    """int8 inference within two quantization levels of the largest
+    value; the ring's mutated gradients and the rest within the fp32
+    gradient tolerance (the card's flash kernels and GEMMs round otherwise
+    than the CPU's plain versions)."""
+    if key == "infer_int8":
+        return dict(rtol=0.0, atol=2 * float(np.abs(want).max()) / 127)
+    return GRAD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("job", sorted(PAR_AXES))
+def test_nccl_parallel_world4_matches_gloo(job, tmp_path):
+    """Each parallel job of the CPU tests at world 4, its axis spanning
+    the world: on NCCL the same outputs and gradients as on gloo."""
+    cards(4)
+    if job == "sp":
+        from horovod_tpu_torch.ops import _build
+        _build.build()  # once, before four processes want the kernels
+    out = []
+    for dev in ("cuda", "cpu"):
+        (tmp_path / dev).mkdir()
+        out.append(cases.spawn(4, tmp_path / dev, job, timeout=300,
+                               mesh={"data": 1, PAR_AXES[job]: 4},
+                               device=dev))
+    for rank, (got, want) in enumerate(zip(*out)):
+        assert sorted(got) == sorted(want)
+        for key, w in want.items():
+            if w.dtype.kind in "US":
+                np.testing.assert_array_equal(got[key], w, err_msg=key)
+                continue
+            np.testing.assert_allclose(got[key], w,
+                                       err_msg=f"{job} {key} rank {rank}",
+                                       **par_tolerance(job, key, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["seq", "model", "pipe", "expert"])
+def test_parallel_full_size_world4_matches_one_card(axis, tmp_path):
+    """chip_smoke.py's parallel entries over ``axis`` = 4 cards: the ring
+    and Ulysses at T = 32,768 (8,192 per rank; 3 heads per rank under
+    Ulysses) and the plain ring at T = 8,192, tp_mlp over model = 4, 4
+    pipeline stages of 3 of GPT-2 small's blocks, the MoE with 2 experts
+    per rank at capacity factors 1.25 and 0.5 (the second drops tokens).
+    Each rank computes one card's result on its own card and raises
+    unless its part agrees (bf16: a few ulps and normwise 1e-2; fp32:
+    rtol 2e-4 / atol 2e-5, gradients 2e-3 / 2e-4)."""
+    import json
+    import os
+    cards(4)
+    from horovod_tpu_torch.ops import _build
+    _build.build()
+    outs = cases.spawn(4, tmp_path, "par_full", (axis,), timeout=600,
+                       mesh={"data": 1, axis: 4}, device="cuda")
+    entries = [json.loads(str(o["entries"])) for o in outs]
+    for rank_entries in entries:
+        for e in rank_entries:
+            assert e["world"] == 4
+    launches = json.loads(str(outs[0]["launches"]))
+    if axis in ("seq", "pipe"):
+        assert all(launches.values()), launches
+    if os.path.isdir("chiprun_out"):
+        with open(f"chiprun_out/torch_cuda_dist_parallel_{axis}.json",
+                  "w") as f:
+            json.dump({"rank0": entries[0], "launches": launches,
+                       "card": torch.cuda.get_device_name(0)}, f)

@@ -235,3 +235,28 @@ def test_cuda_redesigned_kernels_keep_accumulators_in_registers(cuda_device):
             info = fa.kernel_info(name, torch.bfloat16, d)
             assert info["local_bytes"] == 0, (name, d, info)
             assert info["blocks_per_sm"] >= 2, (name, d, info)
+
+
+@pytest.mark.cuda
+def test_step_flops_equal_on_cpu_and_card(cuda_device, monkeypatch):
+    """One forward and backward of a tiny GPT on the flash path counts the
+    same FLOPs on the card (ctypes launches, invisible to
+    FlopCounterMode) as on the CPU (the plain versions' einsums, taken
+    out again): the flash share is counted from the visible pairs."""
+    from horovod_tpu_torch.models.gpt import GptDecoder, lm_loss
+    from horovod_tpu_torch.profiler import flops
+    monkeypatch.setenv("HOROVOD_FLASH_MIN_SEQ", "16")
+    cfg = dict(vocab=64, layers=2, hidden=64, heads=2, mlp_dim=128,
+               max_len=128, dtype=torch.float32)
+    tokens = torch.randint(0, 64, (2, 128),
+                           generator=torch.Generator().manual_seed(1))
+    counts = []
+    for dev in (torch.device("cpu"), cuda_device):
+        model = GptDecoder(**cfg).to(dev)
+        batch = tokens.to(dev)
+
+        def step():
+            lm_loss(model, batch)[0].backward()
+        counts.append(flops.train_step_flops(step, ()))
+    assert counts[0].flops == counts[1].flops > 0
+    assert counts[0].detail == counts[1].detail

@@ -29,7 +29,16 @@ def test_import_loads_no_jax_or_reference_module():
         "horovod_tpu_torch.models.resnet, horovod_tpu_torch.models.mnist, "
         "horovod_tpu_torch.sync_batch_norm, horovod_tpu_torch.ops._build, "
         "horovod_tpu_torch.common.eager, horovod_tpu_torch.mpi_ops, "
-        "horovod_tpu_torch.functions, horovod_tpu_torch.optimizer\n"
+        "horovod_tpu_torch.functions, horovod_tpu_torch.optimizer, "
+        "horovod_tpu_torch.parallel.sp, horovod_tpu_torch.parallel.tp, "
+        "horovod_tpu_torch.parallel.pp, horovod_tpu_torch.parallel.ep, "
+        "horovod_tpu_torch.profiler, horovod_tpu_torch.profiler.flops, "
+        "horovod_tpu_torch.profiler.mfu, "
+        "horovod_tpu_torch.profiler.annotate\n"
+        "from horovod_tpu_torch.parallel import ring_attention, "
+        "ulysses_attention\n"
+        "from horovod_tpu_torch.profiler import mfu_report, "
+        "train_step_flops, collective_scope\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=PKG.parent, check=True)
@@ -39,8 +48,10 @@ def test_import_loads_no_jax_or_reference_module():
 
 
 def test_sources_import_no_jax_or_reference_module():
+    """The package's sources and the two chip scripts beside it."""
     offenders = []
-    for path in sorted(PKG.rglob("*.py")):
+    scripts = [PKG.parent / "chip_smoke.py", PKG.parent / "compare_trees.py"]
+    for path in sorted(PKG.rglob("*.py")) + scripts:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):

@@ -1238,13 +1238,220 @@ def run_functions(rank: int, world: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the remaining parallelism (tests/test_torch_sequence_parallel.py,
+# test_torch_tp_pp.py, test_torch_expert_parallel.py): each job runs over
+# one axis that spans the world
+
+SP_SHAPE = (2, 64, 8, 32)  # B, T, H, D; D = 32 so the card runs it too
+# (function, causal, flash)
+SP_CASES = [(fn, causal, flash) for fn in ("ring", "ulysses")
+            for causal in (False, True) for flash in (False, True)]
+
+
+def sp_tag(fn: str, causal: bool, flash: bool) -> str:
+    return f"{fn}|{int(causal)}|{int(flash)}"
+
+
+def sp_inputs() -> list:
+    """q, k, v and the loss weight w, each [B, T, H, D] float32."""
+    rng = np.random.RandomState(30)
+    return [rng.randn(*SP_SHAPE).astype(np.float32) for _ in range(4)]
+
+
+def _seq_shard(x: np.ndarray, rank: int, world: int) -> np.ndarray:
+    per = x.shape[1] // world
+    return x[:, rank * per:(rank + 1) * per]
+
+
+def _attend(fn_name, causal, flash, q, k, v, w) -> dict:
+    """o and the q/k/v gradients of sum(o * w)."""
+    from horovod_tpu_torch.parallel import sp
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = getattr(sp, f"{fn_name}_attention")(*ins, causal=causal,
+                                            use_flash=flash)
+    grads = torch.autograd.grad((o * w).sum(), ins)
+    return dict(zip(("o", "dq", "dk", "dv"), (o,) + grads))
+
+
+def run_sp(rank: int, world: int) -> dict:
+    """Every SP case on this rank's sequence shard; then the ring with a
+    ``ppermute`` that records nothing for autograd (the mutation the
+    tests hold the k/v gradients against)."""
+    from horovod_tpu_torch.parallel import collectives as c
+    dev = _device()
+    q, k, v, w = (torch.tensor(_seq_shard(a, rank, world)).to(dev)
+                  for a in sp_inputs())
+    out = {}
+    for fn, causal, flash in SP_CASES:
+        for key, t in _attend(fn, causal, flash, q, k, v, w).items():
+            out[f"{sp_tag(fn, causal, flash)}|{key}"] = _np(t)
+    differentiable = c.ppermute
+    c.ppermute = lambda x, perm, axis: c._ppermute(
+        x.detach(), [(int(s), int(d)) for s, d in perm], axis)
+    try:
+        for flash in (False, True):
+            res = _attend("ring", True, flash, q, k, v, w)
+            for key in ("dk", "dv"):
+                out[f"mutant|{int(flash)}|{key}"] = _np(res[key])
+    finally:
+        c.ppermute = differentiable
+    return out
+
+
+TP_DIMS = dict(b=4, d=16, h=64)
+
+
+def tp_inputs() -> dict:
+    rng = np.random.RandomState(31)
+    d, h, b = TP_DIMS["d"], TP_DIMS["h"], TP_DIMS["b"]
+    return {"x": rng.randn(b, d).astype(np.float32),
+            "w_in": (rng.randn(d, h) * 0.3).astype(np.float32),
+            "w_out": (rng.randn(h, d) * 0.3).astype(np.float32)}
+
+
+def run_tp(rank: int, world: int) -> dict:
+    """tp_mlp; the column/row pair's gradients (weights and input) of
+    sum(y^2) with tanh between them; tp_mlp_inference on the fp32 and int8
+    wires. Weights sliced as P(None, "model") / P("model", None)."""
+    from horovod_tpu_torch import Compression
+    from horovod_tpu_torch.parallel import tp
+    dev = _device()
+    a = {k: torch.tensor(v).to(dev) for k, v in tp_inputs().items()}
+    per = TP_DIMS["h"] // world
+    cols = slice(rank * per, (rank + 1) * per)
+    w_in, w_out = a["w_in"][:, cols], a["w_out"][cols]
+    out = {"mlp": _np(tp.tp_mlp(a["x"], w_in, w_out))}
+    ins = [t.clone().requires_grad_(True) for t in (w_in, w_out, a["x"])]
+    y = tp.row_parallel(torch.tanh(tp.column_parallel(ins[2], ins[0])),
+                        ins[1])
+    for key, g in zip(("dw_in", "dw_out", "dx"),
+                      torch.autograd.grad((y ** 2).sum(), ins)):
+        out[key] = _np(g)
+    with torch.no_grad():
+        out["infer_fp32"] = _np(tp.tp_mlp_inference(a["x"], w_in, w_out))
+        out["infer_int8"] = _np(tp.tp_mlp_inference(
+            a["x"], w_in, w_out, compression=Compression.int8))
+    return out
+
+
+PP_DIMS = dict(d=8, b=16, b_grad=8)
+
+
+def pp_inputs(world: int) -> dict:
+    rng = np.random.RandomState(32)
+    d = PP_DIMS["d"]
+    return {"ws": (rng.randn(world, d, d) * 0.5).astype(np.float32),
+            "x": rng.randn(PP_DIMS["b"], d).astype(np.float32),
+            "x_grad": rng.randn(PP_DIMS["b_grad"], d).astype(np.float32),
+            "y": rng.randn(PP_DIMS["b_grad"], d).astype(np.float32)}
+
+
+def pp_stage(w, h):
+    return torch.tanh(h @ w)
+
+
+def run_pp(rank: int, world: int) -> dict:
+    """The pipeline at n_micro 4 and 8; the gradient of mean((out - y)^2)
+    for this stage's weight at n_micro 4; the same in bf16."""
+    from horovod_tpu_torch.parallel import pp
+    dev = _device()
+    a = {k: torch.tensor(v).to(dev) for k, v in pp_inputs(world).items()}
+    w = a["ws"][rank]
+    out = {f"fwd|{m}": _np(pp.pipeline_apply(pp_stage, w, a["x"], n_micro=m))
+           for m in (4, 8)}
+    wg = w.clone().requires_grad_(True)
+    loss = ((pp.pipeline_apply(pp_stage, wg, a["x_grad"], n_micro=4) -
+             a["y"]) ** 2).mean()
+    out["grad"] = _np(torch.autograd.grad(loss, wg)[0])
+
+    def bf16_stage(w, h):
+        if h.dtype != torch.bfloat16:
+            raise TypeError(f"stage got {h.dtype}")
+        return torch.tanh(h @ w)
+    y16 = pp.pipeline_apply(bf16_stage, w.bfloat16(),
+                            a["x_grad"].bfloat16(), n_micro=4)
+    out["bf16_dtype"] = np.array(str(y16.dtype))
+    out["bf16"] = _np(y16.float())
+    return out
+
+
+EP_DIMS = dict(d=16, h=32, e_loc=2)
+# case -> (tokens per rank, capacity factor)
+EP_CASES = {"fwd": (16, None), "drop": (32, 0.25), "grad": (8, 4.0)}
+
+
+def ep_inputs(world: int, case: str) -> dict:
+    """Weights for ``world`` ranks of E_LOC experts and every rank's
+    tokens [world, T_local, D]; a capacity factor of None means E_total
+    (nothing drops)."""
+    rng = np.random.RandomState(33 + sorted(EP_CASES).index(case))
+    d, h = EP_DIMS["d"], EP_DIMS["h"]
+    e = world * EP_DIMS["e_loc"]
+    return {"w_gate": rng.randn(d, e).astype(np.float32),
+            "w_in": (rng.randn(e, d, h) * 0.2).astype(np.float32),
+            "w_out": (rng.randn(e, h, d) * 0.2).astype(np.float32),
+            "x": rng.randn(world, EP_CASES[case][0], d).astype(np.float32)}
+
+
+def run_ep(rank: int, world: int) -> dict:
+    """moe_layer on this rank's tokens for each case; for "grad" the
+    gradients of sum(out^2) for w_gate (this rank's own), the local
+    expert weights and x."""
+    from horovod_tpu_torch.parallel import ep
+    dev = _device()
+    e_loc = EP_DIMS["e_loc"]
+    mine = slice(rank * e_loc, (rank + 1) * e_loc)
+    out = {}
+    for case, (_, cf) in EP_CASES.items():
+        a = {k: torch.tensor(v).to(dev)
+             for k, v in ep_inputs(world, case).items()}
+        ins = [a["x"][rank].clone().requires_grad_(True),
+               a["w_gate"].clone().requires_grad_(True),
+               a["w_in"][mine].clone().requires_grad_(True),
+               a["w_out"][mine].clone().requires_grad_(True)]
+        y = ep.moe_layer(*ins, capacity_factor=cf or float(world * e_loc))
+        out[case] = _np(y)
+        if case == "grad":
+            grads = torch.autograd.grad((y ** 2).sum(), ins)
+            for key, g in zip(("dx", "dw_gate", "dw_in", "dw_out"), grads):
+                out[f"grad|{key}"] = _np(g)
+    return out
+
+
+def run_par_full(rank: int, world: int, case: str) -> dict:
+    """chip_smoke.py's parallel phase entries of one axis at full size
+    (on the card): each rank computes the single-card result on its own
+    card and compares its part; they raise on disagreement."""
+    import json
+    import chip_smoke
+    dev = _device()
+    counts = {k: 0 for k in chip_smoke.NAMES}
+    p = chip_smoke.PAR
+    run = {
+        "seq": lambda: [
+            chip_smoke.par_attention(dev, counts, "ring", True, p["t"]),
+            chip_smoke.par_attention(dev, counts, "ring", False,
+                                     p["t_plain"]),
+            chip_smoke.par_attention(dev, counts, "ulysses", True, p["t"])],
+        "model": lambda: [chip_smoke.par_tp(dev, counts)],
+        "pipe": lambda: [chip_smoke.par_pipeline(dev, counts)],
+        "expert": lambda: [
+            chip_smoke.par_moe(dev, counts),
+            chip_smoke.par_moe(dev, counts, chip_smoke.MOE["cf_drop"],
+                               must_drop=True)],
+    }[case]
+    return {"entries": np.array(json.dumps(run())),
+            "launches": np.array(json.dumps(counts))}
+
+
 def worker(rank: int, world: int, store_path: str, out_path: str,
            job: str, job_args: tuple = (), mesh=None,
            device: str = "cpu") -> None:
     """Process entry: join a world of ``world`` through a FileStore (gloo
     on the CPU; NCCL on ``cuda:rank`` with ``device="cuda"``; with
-    ``mesh=(data, fsdp)`` as that mesh), run ``job`` and save its results
-    to ``out_path``."""
+    ``mesh=(data, fsdp)`` or a dict of ``MeshSpec`` sizes as that mesh),
+    run ``job`` and save its results to ``out_path``."""
     os.environ["HOROVOD_RANK"] = str(rank)
     os.environ["HOROVOD_SIZE"] = str(world)
     os.environ["HOROVOD_LOCAL_RANK"] = str(rank)
@@ -1252,7 +1459,10 @@ def worker(rank: int, world: int, store_path: str, out_path: str,
     torch.set_num_threads(1)  # tiny tensors; leave the cores to the suite
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.parallel.mesh import MeshSpec
-    spec = MeshSpec(data=mesh[0], fsdp=mesh[1]) if mesh else None
+    if isinstance(mesh, dict):
+        spec = MeshSpec(**mesh)
+    else:
+        spec = MeshSpec(data=mesh[0], fsdp=mesh[1]) if mesh else None
     if device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -1297,4 +1507,6 @@ JOBS = {"collectives": run_collectives, "dp": run_dp_step,
         "bert_dp": run_bert_dp_step, "bucketing": run_bucketing,
         "zero": run_zero, "adasum": run_adasum, "eager": run_eager,
         "eager_adasum": run_eager_adasum, "dist_opt": run_dist_opt,
-        "layout": run_layout, "functions": run_functions}
+        "layout": run_layout, "functions": run_functions, "sp": run_sp,
+        "tp": run_tp, "pp": run_pp, "ep": run_ep,
+        "par_full": run_par_full}
