@@ -116,14 +116,40 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                no rollback); D, ShardedState over ZeRO-1 AdamW with B's
                fault, resuming from the live step. Each must end bit-equal
                to its run A, with its recovery split into detection,
-               teardown, re-init and sync, commit ms and peak memory.
+               teardown, re-init and sync, commit ms and peak memory;
+15. serve    - the serving plane at world 1 on NCCL, GEMMs in full fp32
+               (TF32 off, checked): the tensor-parallel LM at GPT-2 small's
+               widths (vocab 50257, hidden 768, mlp 3072, 12 layers, seed
+               0; 95.2M fp32 parameters) through make_tp_lm_step. (a) its
+               last-position logits on 8 ragged prompts (1-200 tokens,
+               bucket 256) against the same model on the CPU (rtol 1e-4 /
+               atol 1e-4, greedy tokens equal), and on the int8 activation
+               wire against fp32 within the codec's bound (layers x 2
+               max|logits| / 127), with the share of rows whose tokens
+               agree; (b) the median ms of 20 step calls at buckets 32,
+               256, 1024 and 2048 on each wire, decode tokens/s at batch
+               8, peak memory; (c) 32 requests from 4 client threads over
+               HTTP to ServeFrontend -> ContinuousBatcher(8) ->
+               ServingLoop on the int8 LM (prompts of 8-200 tokens, 16 new
+               tokens, deadline 30 s): each ok and equal to its prompt
+               decoded alone, p50/p99, decode steps/s, tokens/s, mean
+               occupancy, the decode thread's idle share; then a drain
+               with 8 requests in flight (/healthz 503, none lost); (d)
+               the fast path: the recurrent LM (hidden 192, vocab 256) on
+               the card behind PagedKVCache(16, 256) with speculative
+               decode (k 4) over the shared-prefix trace (prefix 160, tail
+               16, 16 new tokens): tokens equal recompute's on 16 prompts,
+               accept rate, ms per advance at batch 8, goodput of both
+               stacks at one offered load, the pool balanced. It runs no
+               flash kernel.
 
 The train, frontend, bert and resnet lines carry the port's MFU
 (profiler/mfu.py ``mfu_report``: FLOPs per token or image from
 FlopCounterMode plus the flash kernels' share, over the card's bf16 peak),
 which must lie in (0, 1]. Then the kernels line (launches per path: gpt,
-frontend, bert, resnet, parallel, elastic), the nvidia-smi line, and the final
-``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes the nvcc
+frontend, bert, resnet, parallel, elastic, serve), the nvidia-smi line, and
+the final ``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes
+the nvcc
 logs there; ``--profile`` adds one profiled GPT train step, one profiled
 BERT-Large step per option set and one profiled ResNet-50 step (device
 time by kernel, device idle share) and, with ``--out``, their Chrome
@@ -158,8 +184,17 @@ REPLACES = {
 }
 
 
+# with --out, every emitted line is kept there too (the standard output
+# a run returns may be cut to its end)
+_LINES = None
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if _LINES is not None:
+        with open(_LINES, "a") as f:
+            f.write(line + "\n")
 
 
 def card_line() -> str:
@@ -2104,10 +2139,603 @@ def elastic_phase(device, card):
     return counts, line
 
 
+# ---------------------------------------------------------------------------
+# the serving plane: the TP LM at GPT-2 small's widths behind the batcher,
+# the serving loop and the HTTP frontend; the fast path on the recurrent LM
+
+SERVE_GPT = dict(vocab=50257, hidden=768, mlp_dim=3072, layers=12, seed=0)
+SERVE = dict(batch=8, parity_bucket=256, parity_max_len=200,
+             buckets=(32, 256, 1024, 2048), step_calls=20, http_requests=32,
+             http_clients=4, prompt_min=8, prompt_max=200, new_tokens=16,
+             deadline_ms=30000.0, drain_requests=8)
+SERVE_FAST = dict(hidden=192, vocab=256, block_tokens=16, pool_blocks=256,
+                  spec_k=4, prefix_len=160, tail_len=16, new_tokens=16,
+                  tenants=4, pin_prompts=16, offered_qps=60.0,
+                  window_s=3.0, deadline_ms=1500.0)
+
+
+def serve_prompts(n, lo, hi, vocab, seed=0):
+    """``n`` prompts of ``lo`` to ``hi`` tokens from ``seed``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, vocab, rng.randint(lo, hi + 1)).tolist()
+            for _ in range(n)]
+
+
+def serve_batch(prompts, bucket, batch):
+    """The batch the serving loop builds: prompts in the first rows,
+    padding rows one token long."""
+    import numpy as np
+    tokens = np.zeros((batch, bucket), np.int32)
+    lengths = np.ones(batch, np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+        lengths[i] = len(p)
+    return tokens, lengths
+
+
+def serve_greedy(step, prompt, new_tokens, bucket, batch):
+    """One request decoded alone through ``step``, laid out as the loop
+    lays out a batch."""
+    seq = list(prompt)
+    for _ in range(new_tokens):
+        tokens, lengths = serve_batch([seq], bucket, batch)
+        seq.append(int(step(tokens, lengths)[0]))
+    return seq[len(prompt):]
+
+
+# the codec's block (compression.Compression.int8, the quantized ops'
+# default)
+SERVE_INT8_BLOCK = 256
+
+
+def serve_codec_bound(parts, block=SERVE_INT8_BLOCK):
+    """Per element, the int8 wire's bound on |wire(sum parts) - sum parts|
+    for the row-parallel partial sums ``parts`` of the ``world`` ranks:
+    the reduce-scatter rounds each rank's block to the nearest of 127
+    levels of its max|block| (within max|block| / 254), the all-gather
+    rounds the reduced block again (within its own max / 254, itself at
+    most the first round's error above the exact sum's). Blocks are 256
+    consecutive elements of the flattened, zero-padded tensor, as
+    ``quantized_allreduce`` lays them out at every world."""
+    import torch
+    world = len(parts)
+    total = parts[0] if world == 1 else sum(parts)
+    n = total.numel()
+    pad = (-n) % (world * block)
+
+    def block_max(t):
+        flat = torch.nn.functional.pad(t.reshape(-1), (0, pad))
+        return flat.reshape(-1, block).abs().amax(-1)
+    first = sum(block_max(p) for p in parts) / 254
+    per_block = first + (block_max(total) + first) / 254
+    # the fp32 rounding of the scales, the dequantized products and the
+    # sum, a few ulps of the block's magnitude
+    per_block = per_block * (1 + 1e-5) + 1e-6 * block_max(total)
+    return per_block.repeat_interleave(block)[:n].reshape(total.shape)
+
+
+def serve_int8_probe(model, tokens, lengths, world=1, wire_axis=False):
+    """The int8 wire of the TP LM ``model`` (one device, whole weights)
+    followed layer by layer, and the bound it puts on the logits.
+
+    At every layer the row-parallel partial sums of ``world`` ranks (the
+    weights' column and row shards) give the codec's bound per element
+    (:func:`serve_codec_bound`). With ``wire_axis`` (None or a model axis
+    of one: ``model.axis``) the reduction runs through
+    ``quantized_allreduce`` as ``TpLm`` runs it: every element must lie
+    within its bound, and the wire's output must equal, bit for bit, the
+    CPU's codec (``axis=None``) applied to the same values (a wrong block
+    scale or rounding on the device fails here). The residual then takes
+    the wire's output, so the probe's logits are the int8 step's.
+    Without ``wire_axis`` the residual stays fp32. The bound on
+    |int8 - fp32| logits of row b is, to first order, the sum over the
+    layers of the largest bound at b's last live position, carried
+    through the final LayerNorm and the tied head by their Jacobian's
+    row-sum norm: max_v sum_d |(E J_LN)_vd|, J_LN = (I - 11^T/d -
+    x_hat x_hat^T/d) / sigma. The later layers' response to a layer's
+    error is left out (first order). Returns ``(logits [B, V], bound
+    [B], worst codec ratio or None, per-layer block maxima)``."""
+    import torch
+    from horovod_tpu_torch.parallel import collectives
+    from horovod_tpu_torch.serve.executor import _ln
+    dev = model.embed.device
+    tok = torch.as_tensor(tokens, device=dev).long()
+    lens = torch.as_tensor(lengths, device=dev).long()
+    rows = torch.arange(tok.shape[0], device=dev)
+    last = (lens - 1).clamp(0, tok.shape[1] - 1)
+    drift = torch.zeros(tok.shape[0], device=dev)
+    worst, maxima = None, []
+    with torch.no_grad():
+        x = model.embed[tok]
+        for w_in, w_out in zip(model.w_in, model.w_out):
+            h, per = _ln(x), w_in.shape[1] // world
+            parts = [torch.tanh(h @ w_in[:, r * per:(r + 1) * per]) @
+                     w_out[r * per:(r + 1) * per] for r in range(world)]
+            bound = serve_codec_bound(parts)
+            y = parts[0] if world == 1 else sum(parts)
+            maxima.append(float(y.abs().max()))
+            if wire_axis is not False:
+                wired = collectives.quantized_allreduce(
+                    y, op=collectives.Sum, axis=wire_axis,
+                    block_size=SERVE_INT8_BLOCK)
+                ratio = float(((wired - y).abs() / bound).max())
+                worst = ratio if worst is None else max(worst, ratio)
+                if ratio > 1.0:
+                    raise AssertionError(
+                        f"serve: the int8 wire is {ratio:.3f} x the "
+                        f"codec's bound at layer {len(maxima) - 1}")
+                on_cpu = collectives.quantized_allreduce(
+                    y.cpu(), op=collectives.Sum, axis=None,
+                    block_size=SERVE_INT8_BLOCK)
+                if not torch.equal(wired.cpu(), on_cpu):
+                    raise AssertionError(
+                        f"serve: the int8 wire differs from the CPU's "
+                        f"codec on the same values at layer "
+                        f"{len(maxima) - 1}")
+                y = wired
+            drift += bound[rows, last].amax(-1)
+            x = x + y
+        xl = x[rows, last]
+        logits = _ln(xl) @ model.embed.t()
+        d = xl.shape[-1]
+        sigma = torch.sqrt(xl.var(-1, unbiased=False) + 1e-6)
+        x_hat = (xl - xl.mean(-1, keepdim=True)) / sigma[:, None]
+        e_c = model.embed - model.embed.mean(-1, keepdim=True)
+        gain = torch.stack([
+            (e_c - (model.embed @ x_hat[b] / d)[:, None] * x_hat[b]
+             ).abs().sum(-1).max() / sigma[b]
+            for b in range(xl.shape[0])])
+    return logits, gain * drift, worst, maxima
+
+
+def serve_tp_flops(bucket, batch=SERVE["batch"]):
+    """FLOPs of one TP LM step over a [batch, bucket] batch (the MLP GEMMs
+    at every position, the head at the last)."""
+    g = SERVE_GPT
+    return (2 * 2 * batch * bucket * g["hidden"] * g["mlp_dim"] *
+            g["layers"] + 2 * batch * g["hidden"] * g["vocab"])
+
+
+def serve_parity(device, steps):
+    """(a): the fp32 TpLm on the card against the same model on the CPU
+    (``axis=None``), 8 ragged prompts of 1-200 tokens in bucket 256; the
+    int8 wire against fp32 within its bound, and against the int8 model
+    on the CPU."""
+    import torch
+    from horovod_tpu_torch.serve.executor import make_tp_lm_step
+    prompts = serve_prompts(SERVE["batch"], 1, SERVE["parity_max_len"],
+                            SERVE_GPT["vocab"])
+    tokens, lengths = serve_batch(prompts, SERVE["parity_bucket"],
+                                  SERVE["batch"])
+    card = {w: steps[w].logits(tokens, lengths).cpu() for w in steps}
+    cpu = {}
+    for wire in ("none", "int8"):
+        step, _ = make_tp_lm_step(compression=wire, device="cpu",
+                                  axis=None, **SERVE_GPT)
+        cpu[wire] = step.logits(tokens, lengths)
+        del step
+    fp32_err = close("serve/fp32 card vs cpu", card["none"], cpu["none"],
+                     1e-4, 1e-4)
+    same_tokens = bool(torch.equal(card["none"].argmax(-1),
+                                   cpu["none"].argmax(-1)))
+    if not same_tokens:
+        raise AssertionError("serve: the card's fp32 greedy tokens differ "
+                             "from the CPU's")
+    probe, bound, codec_ratio, maxima = serve_int8_probe(
+        steps["int8"].model, tokens, lengths,
+        wire_axis=steps["int8"].model.axis)
+    probe_err = float((probe.cpu() - card["int8"]).abs().max())
+    if probe_err > 1e-5:
+        raise AssertionError(f"serve: the probe's int8 logits are "
+                             f"{probe_err} from the step's")
+    bound = bound.cpu()
+    int8_row_err = (card["int8"] - card["none"]).abs().amax(-1)
+    int8_err = float(int8_row_err.max())
+    # the CPU's int8 logits: where a GEMM's summation order moves a value
+    # across a rounding boundary of the codec, one int8 level in one
+    # element, the later layers carry it on; such a row is held to the
+    # codec's bound, the others to the fp32 tolerance
+    cpu_row_err = (card["int8"] - cpu["int8"]).abs().amax(-1)
+    int8_cpu_err = float(cpu_row_err.max())
+    flipped = int(((card["int8"] - cpu["int8"]).abs() >
+                   1e-4 + 1e-4 * cpu["int8"].abs()).any(-1).sum())
+    if bool((int8_row_err > bound).any()) or \
+            bool((cpu_row_err > bound).any()):
+        raise AssertionError(f"serve: int8 logits off fp32 by "
+                             f"{int8_row_err.tolist()}, off the CPU's "
+                             f"int8 by {cpu_row_err.tolist()}, bound "
+                             f"{bound.tolist()}")
+    agree = float((card["int8"].argmax(-1) ==
+                   card["none"].argmax(-1)).float().mean())
+    return {"prompts_len": [len(p) for p in prompts],
+            "bucket": SERVE["parity_bucket"],
+            "fp32_card_vs_cpu": {"max_abs_err": fp32_err[0],
+                                 "normwise_err": fp32_err[1],
+                                 "tolerance_rtol_atol": [1e-4, 1e-4],
+                                 "tokens_equal": same_tokens},
+            "int8_vs_fp32": {"max_abs_err": int8_err,
+                             "max_abs_err_by_row": int8_row_err.tolist(),
+                             "bound_by_row": bound.tolist(),
+                             "codec_worst_ratio": codec_ratio,
+                             "codec_bit_equal_cpu": True,
+                             "probe_vs_step_max_abs_err": probe_err,
+                             "layer_abs_max": maxima,
+                             "card_vs_cpu_int8_max_abs_err": int8_cpu_err,
+                             "card_vs_cpu_int8_by_row":
+                                 cpu_row_err.tolist(),
+                             "card_vs_cpu_int8_rows_past_1e-4": flipped,
+                             "token_agreement": agree},
+            "logits_abs_max": float(card["none"].abs().max())}
+
+
+def serve_step_times(steps):
+    """(b): median ms of ``step_fn`` over 20 calls per bucket and wire (a
+    full batch of 8 rows, host to host: tokens up, next tokens down),
+    after a warm-up call; decode tokens/s at batch 8 and the fp32 bound of
+    the step's GEMMs."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(1)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    for bucket in SERVE["buckets"]:
+        tokens = rng.randint(0, SERVE_GPT["vocab"],
+                             (SERVE["batch"], bucket)).astype(np.int32)
+        lengths = rng.randint(1, bucket + 1,
+                              SERVE["batch"]).astype(np.int32)
+        entry = {"flops": serve_tp_flops(bucket),
+                 "fp32_bound_ms": serve_tp_flops(bucket) /
+                 PEAK_FLOPS["float32"] * 1e3}
+        for wire, step in steps.items():
+            step(tokens, lengths)  # warm-up: the bucket's first shapes
+            ts = []
+            for _ in range(SERVE["step_calls"]):
+                t0 = time.perf_counter()
+                step(tokens, lengths)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            ms = statistics.median(ts)
+            entry[wire] = {"ms": ms, "min_ms": min(ts), "max_ms": max(ts),
+                           "decode_tokens_per_s": SERVE["batch"] / ms * 1e3}
+        out[str(bucket)] = entry
+    return out, torch.cuda.max_memory_allocated()
+
+
+def serve_http(step):
+    """(c): 32 requests from 4 client threads to ServeFrontend over the
+    int8 TP LM (prompts of 8-200 tokens from seed 0, 16 new tokens,
+    deadline 30 s); each must come back ok with the tokens of its prompt
+    decoded alone through the step. Before the load, token ids outside
+    the vocabulary: the step refuses them on the host, and over HTTP they
+    are answered 400, after which the load must still come back ok (an id
+    that reached the card's embedding would leave the CUDA context
+    unusable). Then drain with 8 requests in flight: /healthz must turn
+    503 and every accepted request finish ok."""
+    import threading
+    import urllib.request
+    from urllib import error as urlerror
+    from horovod_tpu_torch.metrics import snapshot_histogram, snapshot_value
+    from horovod_tpu_torch.metrics.registry import MetricsRegistry
+    from horovod_tpu_torch.serve.batcher import (ContinuousBatcher,
+                                                 InvalidRequest, bucket_for)
+    from horovod_tpu_torch.serve.executor import ServingLoop
+    from horovod_tpu_torch.serve.frontend import ServeFrontend, serving_stats
+    from horovod_tpu_torch.serve.router import post_json
+    prompts = serve_prompts(SERVE["http_requests"] + SERVE["drain_requests"],
+                            SERVE["prompt_min"], SERVE["prompt_max"],
+                            SERVE_GPT["vocab"])
+    reg = MetricsRegistry()
+    batcher = ContinuousBatcher(max_batch=SERVE["batch"], queue_depth=64,
+                                default_deadline_ms=SERVE["deadline_ms"],
+                                max_new_tokens_cap=SERVE["new_tokens"],
+                                registry=reg, vocab=SERVE_GPT["vocab"])
+    bad_ids = ([5, SERVE_GPT["vocab"]], [-1])
+    step_refused = 0
+    for ids in bad_ids:
+        try:
+            step(*serve_batch([ids], 32, SERVE["batch"]))
+        except InvalidRequest:
+            step_refused += 1
+    buckets = sorted({bucket_for(len(p) + SERVE["new_tokens"],
+                                 batcher.buckets) for p in prompts})
+    for b in buckets:  # warm each bucket the load will use
+        step(*serve_batch([[1] * (b // 2)], b, SERVE["batch"]))
+    loop = ServingLoop(step, batcher, registry=reg).start()
+    front = ServeFrontend(batcher=batcher, port=0, addr="127.0.0.1",
+                          registry=reg).start()
+    results, lock = {}, threading.Lock()
+
+    def post_code(payload):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{front.port}/v1/generate",
+            data=json.dumps(payload).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status
+        except urlerror.HTTPError as e:
+            return e.code
+
+    def client(ids):
+        for i in ids:
+            t0 = time.perf_counter()
+            out = post_json("127.0.0.1", front.port, "/v1/generate",
+                            {"tokens": prompts[i],
+                             "max_new_tokens": SERVE["new_tokens"],
+                             "deadline_ms": SERVE["deadline_ms"],
+                             "id": f"r{i}"}, timeout=120.0)
+            with lock:
+                results[i] = (out, time.perf_counter() - t0)
+
+    n, k = SERVE["http_requests"], SERVE["http_clients"]
+    try:
+        bad_codes = [post_code({"tokens": ids, "max_new_tokens": 2})
+                     for ids in bad_ids]
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(range(c, n, k),))
+                   for c in range(k)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        snap = reg.snapshot()
+        stats = serving_stats(snap)
+        step_hist = snapshot_histogram(snap, "hvd_serve_step_seconds")
+        # the drain: requests in flight, then /healthz must turn 503
+        drain_ids = range(n, n + SERVE["drain_requests"])
+        drainers = [threading.Thread(target=client, args=([i],))
+                    for i in drain_ids]
+        for t in drainers:
+            t.start()
+        deadline = time.monotonic() + 60.0
+        while (snapshot_value(reg.snapshot(), "hvd_serve_admitted_total")
+               or 0) < n + len(drainers) and time.monotonic() < deadline:
+            time.sleep(0.001)  # until every drain request is accepted
+        in_flight = len(drainers) - sum(1 for i in drain_ids
+                                        if i in results)
+        front.set_draining(True)
+        try:
+            urllib.request.urlopen(f"http://127.0.0.1:{front.port}/healthz",
+                                   timeout=10)
+            health = 200
+        except urlerror.HTTPError as e:
+            health = e.code
+        drained = loop.drain(timeout=120.0)
+        for t in drainers:
+            t.join()
+    finally:
+        loop.stop()
+        front.stop()
+    if step_refused != len(bad_ids) or bad_codes != [400] * len(bad_ids):
+        raise AssertionError(f"serve/http: ids outside the vocabulary: "
+                             f"{step_refused} refused by the step, HTTP "
+                             f"{bad_codes}")
+    bad = {i: r[0] for i, r in results.items() if r[0].get("status") != "ok"}
+    if bad or len(results) != n + len(drainers):
+        raise AssertionError(f"serve/http: requests not ok: {bad}")
+    if health != 503 or not drained:
+        raise AssertionError(f"serve/http: drain: healthz {health}, "
+                             f"drained {drained}")
+    final = serving_stats(reg.snapshot())
+    if final["requests_ok"] != n + len(drainers) or \
+            final["requests_failed"] or final["requests_expired"]:
+        raise AssertionError(f"serve/http: lost requests: {final}")
+    mismatched = []
+    for i, p in enumerate(prompts):
+        bucket = bucket_for(len(p) + SERVE["new_tokens"], batcher.buckets)
+        alone = serve_greedy(step, p, SERVE["new_tokens"], bucket,
+                             SERVE["batch"])
+        if results[i][0]["tokens"] != alone:
+            mismatched.append(i)
+    if mismatched:
+        raise AssertionError(f"serve/http: requests {mismatched} differ "
+                             "from their prompts decoded alone")
+    lat = sorted(r[1] * 1e3 for i, r in results.items() if i < n)
+    gen = sum(len(r[0]["tokens"]) for i, r in results.items() if i < n)
+    busy = step_hist["sum"] if step_hist else 0.0
+    return {"requests": n, "clients": k, "new_tokens": SERVE["new_tokens"],
+            "buckets": buckets, "wall_s": wall,
+            "latency_p50_ms": lat[len(lat) // 2],
+            "latency_p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "latency_max_ms": lat[-1],
+            "decode_steps": stats["decode_steps"],
+            "decode_steps_per_s": stats["decode_steps"] / wall,
+            "generated_tokens_per_s": gen / wall,
+            "batch_occupancy_mean": stats["batch_occupancy_mean"],
+            "decode_thread_busy_s": busy,
+            "decode_thread_idle_share": 1.0 - busy / wall,
+            "server_latency_p50_ms": stats["latency_p50_ms"],
+            "server_latency_p99_ms": stats["latency_p99_ms"],
+            "tokens_equal_alone": True,
+            "ids_outside_vocab": {"step_refused": step_refused,
+                                  "http_codes": bad_codes,
+                                  "then_requests_ok": n},
+            "drain": {"requests": len(drainers),
+                      "in_flight_at_drain": in_flight,
+                      "healthz": health, "drained": drained,
+                      "requests_ok": final["requests_ok"]}}
+
+
+def serve_fastpath(device):
+    """(d): the recurrent LM (hidden 192, vocab 256) on the card behind
+    PagedKVCache(16, 256) with speculative decode (k 4) over the
+    shared-prefix trace (prefix 160, tail 16, 16 new tokens): cached +
+    speculative greedy tokens equal recompute's on the trace's first 16
+    prompts; accept rate, ms per advance at batch 8, goodput at one
+    offered load for both stacks, and the pool balanced at the end."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.metrics import snapshot_value
+    from horovod_tpu_torch.metrics.registry import MetricsRegistry
+    from horovod_tpu_torch.serve import loadgen
+    from horovod_tpu_torch.serve.batcher import (AdmissionRejected,
+                                                 ContinuousBatcher)
+    from horovod_tpu_torch.serve.executor import (ServingLoop,
+                                                  make_rnn_lm_step)
+    from horovod_tpu_torch.serve.kv_cache import PagedKVCache
+    f = SERVE_FAST
+    trace = loadgen.shared_prefix_trace(
+        seed=0, requests=256, tenants=f["tenants"],
+        prefix_len=f["prefix_len"], tail_len=f["tail_len"],
+        max_new_tokens=f["new_tokens"], vocab=f["vocab"])
+    step_fn, cached, draft, info = make_rnn_lm_step(
+        hidden=f["hidden"], vocab=f["vocab"], device=device)
+
+    def build(fast):
+        reg = MetricsRegistry()
+        cache = PagedKVCache(block_tokens=f["block_tokens"],
+                             pool_blocks=f["pool_blocks"],
+                             registry=reg) if fast else None
+        batcher = ContinuousBatcher(max_batch=8, queue_depth=32,
+                                    default_deadline_ms=f["deadline_ms"],
+                                    max_len=256, registry=reg, cache=cache)
+        loop = ServingLoop(step_fn, batcher, registry=reg,
+                           cached_step=cached if fast else None,
+                           draft_step=draft if fast else None,
+                           spec_k=f["spec_k"]).start()
+        return reg, batcher, loop
+
+    def decode(fast):
+        reg, batcher, loop = build(fast)
+        try:
+            reqs = [batcher.submit(t["tokens"],
+                                   max_new_tokens=t["max_new_tokens"],
+                                   deadline_ms=120e3)
+                    for t in trace[:f["pin_prompts"]]]
+            for r in reqs:
+                r.wait(180.0)
+        finally:
+            loop.drain(timeout=60.0)
+            loop.stop()
+        if any(r.status != "ok" for r in reqs):
+            raise AssertionError(f"serve/fastpath: {[r.status for r in reqs]}")
+        return [r.generated for r in reqs], reg, batcher
+
+    plain, _, _ = decode(False)
+    fast, reg, batcher = decode(True)
+    if fast != plain:
+        raise AssertionError("serve/fastpath: cached + speculative tokens "
+                             "differ from recompute")
+    snap = reg.snapshot()
+    proposed = snapshot_value(snap, "hvd_serve_spec_proposed_total") or 0
+    accepted = snapshot_value(snap, "hvd_serve_spec_accepted_total") or 0
+
+    # ms per advance at batch 8: one steady decode position and one
+    # verify of k drafted tokens + the bonus, from prompt checkpoints
+    rows = trace[:8]
+    width = max(len(t["tokens"]) for t in rows) + f["spec_k"] + 1
+    tokens = np.zeros((8, width), np.int32)
+    for i, t in enumerate(rows):
+        tokens[i, :len(t["tokens"])] = t["tokens"]
+    lens = np.array([len(t["tokens"]) for t in rows], np.int64)
+    _, states = cached.advance(tokens, lens, cached.init_state(8),
+                               np.zeros(8, np.int64))
+    state = states[np.arange(8), lens - 1]
+    advance_ms = {}
+    for name, a in (("decode_1", 1), ("verify_k1", f["spec_k"] + 1)):
+        ts = []
+        for _ in range(5 + 20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cached.advance(tokens, lens + a, state, lens)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        advance_ms[name] = statistics.median(ts[5:])
+
+    def window(fast):
+        reg, batcher, loop = build(fast)
+
+        def submit(payload):
+            try:
+                req = batcher.submit(payload["tokens"],
+                                     max_new_tokens=payload[
+                                         "max_new_tokens"])
+            except AdmissionRejected:
+                return {"status": "rejected"}
+            req.wait(f["deadline_ms"] / 1e3 + 5.0)
+            return req.result()
+        try:
+            for t in range(f["tenants"]):  # publish the shared prefixes
+                submit(dict(trace[t]))
+            out = loadgen.run_load(submit, f["offered_qps"], f["window_s"],
+                                   loadgen.trace_payload_fn(trace))
+        finally:
+            loop.drain(timeout=60.0)
+            loop.stop()
+        if fast:
+            out["pool_balanced"] = batcher.cache.balanced()
+            snap = reg.snapshot()
+            out["prefill_tokens_saved"] = snapshot_value(
+                snap, "hvd_serve_cache_prefill_tokens_saved_total")
+        return out
+
+    fast_w, plain_w = window(True), window(False)
+    if not (batcher.cache.balanced() and fast_w["pool_balanced"]):
+        raise AssertionError("serve/fastpath: cache pool not balanced")
+    return {"model": info, "trace": {k: f[k] for k in (
+                "prefix_len", "tail_len", "new_tokens", "tenants")},
+            "cache": {"block_tokens": f["block_tokens"],
+                      "pool_blocks": f["pool_blocks"]},
+            "spec_k": f["spec_k"], "pin_prompts": f["pin_prompts"],
+            "tokens_equal_recompute": True,
+            "spec_proposed": proposed, "spec_accepted": accepted,
+            "accept_rate": accepted / proposed if proposed else None,
+            "advance_ms_batch8": advance_ms,
+            "offered_qps": f["offered_qps"], "deadline_ms": f["deadline_ms"],
+            "goodput_fast": fast_w, "goodput_recompute": plain_w,
+            "cache_balanced": True}
+
+
+def serve_phase(device, card):
+    """The serve phase at world 1 on NCCL: parts (a)-(d)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.serve.executor import (activation_wire_report,
+                                                  make_tp_lm_step)
+    tf32 = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    if tf32 != {"allow_tf32": False, "float32_matmul_precision": "highest"}:
+        raise AssertionError(f"serve: GEMMs not in full fp32: {tf32}")
+    # what earlier phases still hold: the step times' peak counts it too
+    held = torch.cuda.memory_allocated()
+    fa.reset_launch_counts()
+    hvd.init()
+    try:
+        t0 = time.perf_counter()
+        steps = {w: make_tp_lm_step(compression=w, device=device,
+                                    **SERVE_GPT)[0]
+                 for w in ("none", "int8")}
+        build_s = time.perf_counter() - t0
+        params = sum(p.numel() for p in steps["none"].model.parameters())
+        parity = serve_parity(device, steps)
+        times, peak = serve_step_times(steps)
+        http = serve_http(steps["int8"])
+        del steps
+        torch.cuda.empty_cache()
+        fastpath = serve_fastpath(device)
+    finally:
+        hvd.shutdown()
+    counts = dict(fa.launch_counts())
+    if any(counts.values()):
+        raise AssertionError(f"serve: flash kernels launched: {counts}")
+    return counts, {"phase": "serve", "nvidia_smi": card, "backend": "nccl",
+                    "world_size": 1, "tf32": tf32,
+                    "model": dict(SERVE_GPT, params=params,
+                                  build_s=build_s),
+                    "wire": activation_wire_report(SERVE_GPT["hidden"],
+                                                   SERVE_GPT["layers"], 1),
+                    "parity": parity, "step_ms": times,
+                    "peak_mem_bytes": peak,
+                    "mem_held_at_phase_start_bytes": held, "http": http,
+                    "fastpath": fastpath, "flash_launches": counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
-                    help="directory for the nvcc logs (and the trace)")
+                    help="directory for the nvcc logs, the trace and "
+                         "chip_smoke_lines.jsonl (every printed line)")
     ap.add_argument("--profile", action="store_true",
                     help="profile one extra train step after the counted "
                          "ones (torch.profiler)")
@@ -2116,6 +2744,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    global _LINES
+    if opts.out:
+        os.makedirs(opts.out, exist_ok=True)
+        _LINES = os.path.join(opts.out, "chip_smoke_lines.jsonl")
+        open(_LINES, "w").close()
     from horovod_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2197,6 +2830,8 @@ def main() -> int:
     emit(par_line)
     counts["elastic"], elastic_line = elastic_phase(device, card)
     emit(elastic_line)
+    counts["serve"], serve_line = serve_phase(device, card)
+    emit(serve_line)
 
     kernels = []
     for name in NAMES:

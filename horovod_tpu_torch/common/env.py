@@ -83,6 +83,65 @@ REGISTRY = {
     "HOROVOD_FLASH_MIN_SEQ": (
         256, "key length from which attention routes to the flash kernels "
              "(the crossover measured on an H100)"),
+    # the serving plane (reference env_registry.py:175-225)
+    "HOROVOD_SERVE_PORT": (None, "serving frontend HTTP port (0 = "
+                                 "ephemeral; unset = off)"),
+    "HOROVOD_SERVE_MAX_BATCH": (
+        8, "continuous-batching slot count (max in-flight requests per "
+           "step)"),
+    "HOROVOD_SERVE_QUEUE_DEPTH": (
+        64, "bounded admission queue length; a full queue rejects "
+            "(backpressure)"),
+    "HOROVOD_SERVE_DEADLINE_MS": (
+        1000.0, "default per-request deadline when the client sends none"),
+    "HOROVOD_SERVE_MAX_NEW_TOKENS": (32, "cap on generated tokens per "
+                                         "request"),
+    "HOROVOD_SERVE_ACT_COMPRESSION": (
+        "int8", "activation wire format of the tensor-parallel inference "
+                "reduction (none | int8, block-quantized)"),
+    "HOROVOD_SERVE_DRAIN_TIMEOUT_SECONDS": (
+        10.0, "drain grace: how long a departing worker may finish "
+              "in-flight requests before they are re-routed"),
+    "HOROVOD_SERVE_RETRY_LIMIT": (
+        3, "re-route attempts per accepted request before it fails "
+           "loudly"),
+    "HOROVOD_SERVE_PRIORITY_CLASSES": (
+        "batch,standard,premium", "comma-separated priority classes, "
+                                  "lowest first; under queue pressure the "
+                                  "lowest are shed first"),
+    "HOROVOD_SERVE_TENANT_QPS": (
+        0.0, "per-tenant token-bucket refill rate in requests/s (0 = "
+             "quotas off); exhausted tenants get 429 + Retry-After"),
+    "HOROVOD_SERVE_TENANT_BURST": (10.0, "per-tenant token-bucket "
+                                         "capacity (burst size)"),
+    "HOROVOD_SERVE_KV_BLOCK_TOKENS": (
+        16, "token positions covered by one KV-cache block (the paging "
+            "granularity and the shareable-prefix quantum)"),
+    "HOROVOD_SERVE_KV_POOL_BLOCKS": (
+        512, "bounded KV-cache block pool per serving worker; admission "
+             "charges worst-case blocks here"),
+    "HOROVOD_SERVE_PREFIX_REUSE": (
+        True, "hash-based prefix reuse: full prompt blocks are shared "
+              "copy-on-write across requests"),
+    "HOROVOD_SERVE_SPEC_DECODE": (
+        False, "speculative decoding: a draft model proposes "
+               "HOROVOD_SERVE_SPEC_DRAFT_K tokens per step and the target "
+               "verifies them in one batched step"),
+    "HOROVOD_SERVE_SPEC_DRAFT_K": (4, "draft tokens proposed per "
+                                      "speculative decode step"),
+    # request tracing and the event journal
+    "HOROVOD_TRACE_SAMPLE": (
+        0.0, "fraction of served requests traced end to end (0 = off)"),
+    "HOROVOD_TRACE_DIR": (None, "directory where sampled request traces "
+                                "are written as trace_<id>.json"),
+    "HOROVOD_TRACE_BUFFER_SPANS": (8192, "in-memory span ring capacity "
+                                         "per process"),
+    "HOROVOD_JOURNAL_DIR": (None, "durable structured event journal "
+                                  "directory (unset = journaling off)"),
+    "HOROVOD_JOURNAL_SEGMENT_BYTES": (
+        4 << 20, "journal segment size that triggers close-and-rotate"),
+    "HOROVOD_JOURNAL_SEGMENTS": (8, "journal segments retained per writer "
+                                    "process"),
 }
 
 _UNSET = object()

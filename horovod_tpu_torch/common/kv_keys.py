@@ -4,7 +4,9 @@ Counterpart of the typed builders of ``horovod_tpu/common/kv_keys.py``
 (:186-233), limited to the families an elastic worker reads or writes. The
 driver publishes ``generation``, ``notify``, ``go`` and ``rank_and_size``;
 the worker writes ``worker_state``, ``worker_heartbeat``, ``drain``,
-``shard_handoff`` and ``reset_request``. The strings must stay the
+``shard_handoff`` and ``reset_request``. The serving plane's three
+(:254-264): a serve worker writes ``serve_addr`` and polls ``serve_stop``;
+the router reads the driver's ``serve_targets``. The strings must stay the
 reference's: the two sides of the protocol meet on them.
 """
 
@@ -43,3 +45,15 @@ def shard_handoff(world: int, old_rank: int) -> str:
 
 def reset_request(gen: int) -> str:
     return f"reset_request/g{int(gen)}"
+
+
+def serve_targets() -> str:
+    return "serve_targets"
+
+
+def serve_addr(host, local_rank) -> str:
+    return f"serve_addr/{host}/{local_rank}"
+
+
+def serve_stop() -> str:
+    return "serve_stop"

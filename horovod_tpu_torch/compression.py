@@ -26,7 +26,11 @@ def block_quantize_rows(rows: torch.Tensor, block_size: int):
     division and round-half-to-even as the reference give the same bits."""
     r, c = rows.shape
     blocks = rows.float().reshape(r, c // block_size, block_size)
-    scale = blocks.abs().amax(-1) / 127.0
+    # divided by a device tensor, not a Python number: CUDA divides by a
+    # host scalar as a product with its reciprocal, an ulp off for some
+    # blocks, and the card's scales would not be the CPU's
+    scale = blocks.abs().amax(-1) / torch.full((), 127.0,
+                                                device=blocks.device)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(blocks / safe[..., None]), -127, 127)
     return q.to(torch.int8).reshape(r, c), scale

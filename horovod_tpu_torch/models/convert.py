@@ -250,3 +250,39 @@ def from_flax_bert(tree) -> Dict[str, torch.Tensor]:
     sd = _convert(src, bert_entries(_attns(tree)))
     _check_consumed(src)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# the serving plane's two models (serve/executor.py): the reference draws
+# their weights as numpy arrays, so the carry-across is a slice and a copy
+
+
+def tp_lm_params_from_numpy(embed: np.ndarray, ws, rank: int,
+                            world: int) -> Dict[str, torch.Tensor]:
+    """``state_dict`` of rank ``rank``'s shard of the port's ``TpLm`` over a
+    ``model`` axis of ``world``, from the reference ``make_tp_lm_step``'s
+    numpy weights: ``embed`` [vocab, hidden] and ``ws`` = [w_in, w_out] per
+    layer, [hidden, mlp] and [mlp, hidden] in the ``[in, out]`` layout.
+    Each rank takes the slices ``P(None, "model")`` and ``P("model",
+    None)`` give it: columns of w_in, rows of w_out."""
+    if len(ws) % 2:
+        raise KeyError(f"{len(ws)} weight matrices: want w_in, w_out pairs")
+    out = {"embed": _t(embed)}
+    for li in range(len(ws) // 2):
+        w_in, w_out = np.asarray(ws[2 * li]), np.asarray(ws[2 * li + 1])
+        mlp = w_in.shape[1]
+        if mlp % world or w_out.shape[0] != mlp:
+            raise KeyError(f"layer {li}: mlp {mlp} does not split over "
+                           f"{world} ranks")
+        per = mlp // world
+        cols = slice(rank * per, (rank + 1) * per)
+        out[f"w_in.{li}"] = _t(w_in[:, cols])
+        out[f"w_out.{li}"] = _t(w_out[cols])
+    return out
+
+
+def rnn_lm_params_from_numpy(embed: np.ndarray,
+                             w: np.ndarray) -> Dict[str, torch.Tensor]:
+    """The recurrent reference LM's state (``embed`` [vocab, hidden], ``w``
+    [hidden, hidden]) as fp32 tensors, from the reference's numpy."""
+    return {"embed": _t(embed), "w": _t(w)}

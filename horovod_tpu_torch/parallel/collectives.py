@@ -131,6 +131,13 @@ def _group(axis):
     return basics.axis_group(_axes(axis))
 
 
+def _quantized_group(axis):
+    """:func:`_group` for the quantized ops, which also take ``axis=None``:
+    this process alone, a world of one with no group (and no ``init()``),
+    where the codec still makes its round trips and nothing is sent."""
+    return (None, [None]) if axis is None else _group(axis)
+
+
 def _group_order(ranks: List[int]) -> Optional[List[int]]:
     """Position in its process group (ascending global ranks) of each axis
     index's rank; None where the two orders agree."""
@@ -426,18 +433,22 @@ def quantized_reducescatter(x: torch.Tensor,
     if op not in (Average, Sum):
         raise ValueError(f"quantized_reducescatter supports Sum/Average, "
                          f"got {op}")
-    group, ranks = _group(axis)
+    group, ranks = _quantized_group(axis)
     n = len(ranks)
     pos = _group_order(ranks)
     payload, scales = block_quantize_rows(x.reshape(n, -1), block_size)
-    # row d goes to replica d; replica s's row for us arrives as row s
-    payload, scales = (_to_group_order(t, pos) for t in (payload, scales))
-    payload_in, scales_in = torch.empty_like(payload), \
-        torch.empty_like(scales)
-    works = [dist.all_to_all_single(payload_in, payload, group=group,
-                                    async_op=True),
-             dist.all_to_all_single(scales_in, scales, group=group,
-                                    async_op=True)]
+    if axis is None:  # a world of one: the one row stays here
+        payload_in, scales_in, works = payload, scales, []
+    else:
+        # row d goes to replica d; replica s's row for us arrives as row s
+        payload, scales = (_to_group_order(t, pos)
+                           for t in (payload, scales))
+        payload_in, scales_in = torch.empty_like(payload), \
+            torch.empty_like(scales)
+        works = [dist.all_to_all_single(payload_in, payload, group=group,
+                                        async_op=True),
+                 dist.all_to_all_single(scales_in, scales, group=group,
+                                        async_op=True)]
 
     def finish():
         rows = block_dequantize_rows(_to_index_order(payload_in, pos),
@@ -458,11 +469,12 @@ def quantized_allgather(x: torch.Tensor,
     """All-gather a 1-D shard (``x.numel() % block_size == 0``) as int8
     blocks and fp32 scales; returns the fp32 concatenation in axis order
     (reference collectives.py:311-326)."""
-    group, ranks = _group(axis)
+    group, ranks = _quantized_group(axis)
     n, pos = len(ranks), _group_order(ranks)
     payload, scales = block_quantize_rows(x.reshape(1, -1), block_size)
-    payload = _all_gather(payload, group, n, pos)
-    scales = _all_gather(scales, group, n, pos)
+    if axis is not None:
+        payload = _all_gather(payload, group, n, pos)
+        scales = _all_gather(scales, group, n, pos)
     return block_dequantize_rows(payload, scales, block_size).reshape(-1)
 
 
@@ -478,13 +490,14 @@ def quantized_allreduce(x: torch.Tensor,
     quantized all-gather of the reduced shards. ``x`` is zero-padded to a
     multiple of ``axis_size * block_size``. Two quantization round trips:
     each element is within about max|block|/127 of the exact result, and
-    every replica gets the same numbers. ``async_op=True`` returns a
-    :class:`Pending` once the reduce-scatter is issued."""
+    every replica gets the same numbers. ``axis=None`` is a world of one
+    with no group: the two round trips, nothing sent. ``async_op=True``
+    returns a :class:`Pending` once the reduce-scatter is issued."""
     if op not in (Average, Sum):
         raise ValueError(f"quantized_allreduce supports Sum/Average, got {op}")
     x = _scale(x, prescale_factor)
     orig_dtype, orig_shape = x.dtype, x.shape
-    n = axis_size(axis)
+    n = len(_quantized_group(axis)[1])
     flat = x.reshape(-1)
     size = flat.numel()
     pad = (-size) % (n * block_size)

@@ -114,13 +114,15 @@ def row_parallel_inference(x_shard: torch.Tensor, w_shard: torch.Tensor,
     quantized wire: a ``compression`` with ``quantized = True`` (the
     port's ``Compression.int8``) routes the partial-product sum through
     ``quantized_allreduce`` (block ``block_size``, default 256); anything
-    else is a plain sum. Bias is replicated, added after the reduction."""
+    else is a plain sum. Bias is replicated, added after the reduction.
+    ``axis=None`` is the whole layer on this device, a world of one with
+    no group: no sum, and the int8 wire's two codec round trips."""
     y = x_shard @ w_shard
     if compression is not None and getattr(compression, "quantized", False):
         y = collectives.quantized_allreduce(
             y, op=collectives.Sum, axis=axis,
             block_size=getattr(compression, "block_size", 256))
-    else:
+    elif axis is not None:
         y = _psum(y, axis)
     if b is not None:
         y = y + b

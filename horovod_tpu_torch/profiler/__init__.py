@@ -1,6 +1,6 @@
 """Profiling and performance accounting of the port.
 
-Counterpart of ``horovod_tpu/profiler/__init__.py``, for the three layers
+Counterpart of ``horovod_tpu/profiler/__init__.py``, for the four layers
 ported so far:
 
 - :mod:`~horovod_tpu_torch.profiler.flops` — per-step FLOPs from
@@ -10,6 +10,9 @@ ported so far:
   its peak table (the H100 SXM included).
 - :mod:`~horovod_tpu_torch.profiler.annotate` — ``record_function`` and
   NVTX spans around the collectives and the eager ops' host work.
+- :mod:`~horovod_tpu_torch.profiler.trace_merge` — the JSON half of the
+  reference's trace bridge: Chrome-trace event lists merged into one
+  Perfetto-loadable file (the serving plane's span export).
 
 Import is lazy (PEP 562), as in the reference.
 """
@@ -31,14 +34,18 @@ _SUBMODULE_EXPORTS = {
     # annotate
     "collective_scope": "annotate",
     "host_annotation": "annotate",
+    # trace_merge
+    "load_engine_timeline": "trace_merge",
+    "merge_traces": "trace_merge",
 }
 
-__all__ = sorted(_SUBMODULE_EXPORTS) + ["annotate", "flops", "mfu"]
+_SUBMODULES = ("annotate", "flops", "mfu", "trace_merge")
+__all__ = sorted(_SUBMODULE_EXPORTS) + list(_SUBMODULES)
 
 
 def __getattr__(name):
     import importlib
-    if name in ("annotate", "flops", "mfu"):
+    if name in _SUBMODULES:
         return importlib.import_module(f"{__name__}.{name}")
     mod = _SUBMODULE_EXPORTS.get(name)
     if mod is None:

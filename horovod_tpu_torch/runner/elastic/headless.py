@@ -1,7 +1,8 @@
 """Bounded worker autonomy under control-plane loss ("headless" mode).
 
-Counterpart of ``horovod_tpu/runner/elastic/headless.py`` (the reference's
-event-journal records are not ported; the log lines carry the same events).
+Counterpart of ``horovod_tpu/runner/elastic/headless.py``: the same
+transitions, log lines and event-journal records (``common/journal.py``:
+``headless_entered``, ``headless_exited``, ``headless_abort``).
 
 When the elastic driver (and the rendezvous KV it hosts) disappears, the
 *data plane* between workers is untouched — training collectives keep
@@ -36,6 +37,7 @@ import threading
 import time
 from typing import Callable, List, Optional, Tuple
 
+from horovod_tpu_torch.common import journal
 from horovod_tpu_torch.common.env import env_float
 
 UNREACHABLE_SECONDS = "hvd_driver_unreachable_seconds"
@@ -57,6 +59,8 @@ def _default_abort(outage_seconds: float):
         "headless deadline exceeded: %s",
         json.dumps({"event": "headless_deadline_exceeded",
                     "outage_seconds": round(outage_seconds, 1)}))
+    journal.emit("worker", "headless_abort",
+                 outage_seconds=round(outage_seconds, 1))
     os._exit(75)  # EX_TEMPFAIL: the control plane never came back
 
 
@@ -126,6 +130,7 @@ def note_failure():
         _logger.warning(
             "driver unreachable: %s",
             json.dumps({"event": "headless_entered"}))
+        journal.emit("worker", "headless_entered")
     deadline = env_float("HOROVOD_HEADLESS_DEADLINE_SECONDS")
     if deadline and deadline > 0 and outage > deadline:
         (hook or _default_abort)(outage)
@@ -147,6 +152,9 @@ def note_success(client=None):
     except Exception:  # noqa: BLE001
         pass
     if was is not None:
+        journal.emit("worker", "headless_exited",
+                     outage_seconds=round(time.monotonic() - was, 1),
+                     replaying_writes=len(pending))
         _logger.warning(
             "driver reachable again: %s",
             json.dumps({"event": "headless_exited",

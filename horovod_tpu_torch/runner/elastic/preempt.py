@@ -1,7 +1,8 @@
 """Preemption-notice draining for elastic workers.
 
-Counterpart of ``horovod_tpu/runner/elastic/preempt.py`` (the reference's
-event-journal records are not ported). The shard handoff is encoded with the
+Counterpart of ``horovod_tpu/runner/elastic/preempt.py``, with its
+event-journal records (``common/journal.py``: ``drain_announce``,
+``drain_finalize``). The shard handoff is encoded with the
 port's numpy block-int8 codec (``parallel/zero.py``), byte for byte the
 reference's.
 
@@ -40,6 +41,7 @@ import threading
 import time
 from typing import Optional
 
+from horovod_tpu_torch.common import journal
 from horovod_tpu_torch.common.env import env_bool, env_str
 
 _logger = logging.getLogger("horovod_tpu_torch.elastic.preempt")
@@ -111,6 +113,9 @@ def _announce():
                                             deadline=10.0)
         _logger.warning("preemption notice: announced drain for %s/%s",
                         host, slot)
+        journal.emit("worker", "drain_announce",
+                     generation=payload["generation"], host=host,
+                     local_rank=slot)
     except Exception as e:  # noqa: BLE001 — the driver also sees the exit
         # headless mode (driver mid-restart): queue the announcement so
         # the heartbeat thread replays it the moment the KV returns
@@ -288,4 +293,5 @@ def finalize_drain(state=None):
         except Exception:  # noqa: BLE001 — the exit code still says clean
             pass
     _logger.warning("drain complete; exiting cleanly")
+    journal.emit("worker", "drain_finalize")
     raise SystemExit(0)

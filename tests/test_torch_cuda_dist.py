@@ -27,7 +27,12 @@ running the rendezvous, rank 3 killed after a commit and a step (4 -> 3, its
 shard from its buddy's replica, detected through the groups' timeout) and a
 fresh process joining (3 -> 4), on the fp32 and int8 reshard wires (numbers
 in chiprun_out/torch_cuda_dist_elastic_<wire>.json; ``-k elastic`` runs
-them alone). Imports torch and the port only (no JAX):
+them alone); and the serving plane's TP LM at GPT-2 small's widths over a
+``model`` axis of the four cards, fp32 and int8 wires, against one card,
+with a ServingLoop on rank 0 while the others follow (its numbers printed
+as one JSON line and in chiprun_out/torch_cuda_dist_serve.json; ``-k
+serve`` runs it alone).
+Imports torch and the port only (no JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_dist.py -q
 
@@ -352,4 +357,86 @@ def test_elastic_gpt_small_zero1_kill_and_join(tmp_path, wire):
     if os.path.isdir("chiprun_out"):
         with open(f"chiprun_out/torch_cuda_dist_elastic_{wire}.json",
                   "w") as f:
+            json.dump(report, f, indent=1)
+
+
+@pytest.mark.cuda
+def test_serve_tp_lm_full_width_world4(tmp_path):
+    """make_tp_lm_step at GPT-2 small's widths (vocab 50257, hidden 768,
+    mlp 3072, 12 layers) over model = 4 cards on NCCL, on 8 ragged rows
+    in bucket 256: fp32 greedy tokens equal to the same model on one card
+    and its logits within rtol 1e-4 / atol 1e-4; both wires against the
+    same world of 4 on gloo (the CPU), fp32 within rtol 1e-4 / atol 1e-4;
+    the int8 wire's logits, against fp32 and against gloo's int8, within
+    the bound the codec puts on them at a world of 4
+    (chip_smoke.serve_int8_probe, from the ranks' partial sums on one
+    card): a value that a GEMM's summation order moves across a rounding
+    boundary lands one int8 level over, and the later layers carry that
+    on. The rows past rtol/atol 1e-4 of gloo's int8 and the share of
+    rows whose tokens agree are reported. Then rank 0
+    serves 16 requests through a ServingLoop on the int8 step while ranks
+    1-3 follow: every request ok with the tokens of its prompt decoded
+    alone, every rank out after stop()."""
+    import json
+    import os
+    import chip_smoke
+    from horovod_tpu_torch.serve.executor import (activation_wire_report,
+                                                  make_tp_lm_step)
+    cards(4)
+    dims = {k: v for k, v in chip_smoke.SERVE_GPT.items() if k != "seed"}
+    mesh = {"data": 1, "model": 4}
+    for d in ("tp", "gloo", "loop"):
+        (tmp_path / d).mkdir()
+    res = cases.spawn(4, tmp_path / "tp", "serve_tp", (dims, 8, 256, False),
+                      timeout=600, mesh=mesh, device="cuda")
+    lead = res[0]
+    np.testing.assert_array_equal(lead["none|tokens"], lead["one|tokens"])
+    np.testing.assert_allclose(lead["none|logits"], lead["one|logits"],
+                               rtol=1e-4, atol=1e-4)
+    for r in res[1:]:
+        assert int(r["none|followed"]) == int(r["int8|followed"]) == 7
+    gloo = cases.spawn(4, tmp_path / "gloo", "serve_tp",
+                       (dims, 8, 256, False, False), timeout=600, mesh=mesh)
+    np.testing.assert_allclose(lead["none|logits"], gloo[0]["none|logits"],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(lead["none|tokens"],
+                                  gloo[0]["none|tokens"])
+    one, _ = make_tp_lm_step(compression=None, device="cuda:0", axis=None,
+                             **dims)
+    _, bound, _, _ = chip_smoke.serve_int8_probe(
+        one.model, *cases.serve_inputs(dims["vocab"], 8, 256), world=4)
+    del one
+    bound = bound.cpu().numpy()
+    row_err = np.abs(lead["int8|logits"] - lead["none|logits"]).max(-1)
+    gloo_diff = np.abs(lead["int8|logits"] - gloo[0]["int8|logits"])
+    gloo_err = gloo_diff.max(-1)
+    assert (row_err <= bound).all(), (row_err, bound)
+    assert (gloo_err <= bound).all(), (gloo_err, bound)
+    loop = cases.spawn(4, tmp_path / "loop", "serve_loop",
+                       (dims, "int8", 16, 4), timeout=600, mesh=mesh,
+                       device="cuda")
+    assert list(loop[0]["status"]) == ["ok"] * 16
+    np.testing.assert_array_equal(loop[0]["tokens"], loop[0]["alone"])
+    assert len({int(r["followed"]) for r in loop[1:]}) == 1
+    report = {
+        "card": torch.cuda.get_device_name(0), "world": 4,
+        "wire": activation_wire_report(dims["hidden"], dims["layers"], 4),
+        "step_ms": {w: float(lead[f"{w}|ms"]) for w in ("none", "int8")},
+        "fp32_vs_one_card_max_abs_err": float(
+            np.abs(lead["none|logits"] - lead["one|logits"]).max()),
+        "fp32_vs_gloo_max_abs_err": float(
+            np.abs(lead["none|logits"] - gloo[0]["none|logits"]).max()),
+        "int8_vs_gloo_int8_by_row": gloo_err.tolist(),
+        "int8_vs_gloo_int8_rows_past_1e-4": int((gloo_diff > 1e-4 + 1e-4 *
+                                                 np.abs(gloo[0]["int8|logits"])
+                                                 ).any(-1).sum()),
+        "int8_vs_fp32_max_abs_err_by_row": row_err.tolist(),
+        "int8_bound_by_row": bound.tolist(),
+        "int8_token_agreement": float(
+            (lead["int8|tokens"] == lead["none|tokens"]).mean()),
+        "loop_requests_ok": 16,
+        "followed_steps": int(loop[1]["followed"])}
+    print(json.dumps(report))
+    if os.path.isdir("chiprun_out"):
+        with open("chiprun_out/torch_cuda_dist_serve.json", "w") as f:
             json.dump(report, f, indent=1)

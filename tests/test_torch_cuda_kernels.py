@@ -1,6 +1,6 @@
 """On the card: each CUDA flash kernel against its plain PyTorch version on
-the same card tensors, the wrappers' input checks, and the launch counters
-of a GPT step. Imports torch and the port only (no JAX), so it also runs on
+the same card tensors, the wrappers' input checks, the launch counters
+of a GPT step, and the int8 codec's bits against the CPU's. Imports torch and the port only (no JAX), so it also runs on
 a machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
@@ -260,3 +260,21 @@ def test_step_flops_equal_on_cpu_and_card(cuda_device, monkeypatch):
         counts.append(flops.train_step_flops(step, ()))
     assert counts[0].flops == counts[1].flops > 0
     assert counts[0].detail == counts[1].detail
+
+
+@pytest.mark.cuda
+def test_int8_codec_on_card_bit_equal_to_cpu(cuda_device):
+    """block_quantize_rows on the card gives the CPU's payload and scales
+    bit for bit, and the dequantized rows too (a scale computed as amax
+    times the reciprocal of 127, as CUDA divides by a host scalar, is an
+    ulp off amax / 127 for some blocks)."""
+    from horovod_tpu_torch.compression import (block_dequantize_rows,
+                                               block_quantize_rows)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(16, 256 * 768, generator=g) * 3
+    want = block_quantize_rows(x, 256)
+    got = block_quantize_rows(x.to(cuda_device), 256)
+    for w, o in zip(want, got):
+        assert torch.equal(o.cpu(), w)
+    assert torch.equal(block_dequantize_rows(*got, 256).cpu(),
+                       block_dequantize_rows(*want, 256))

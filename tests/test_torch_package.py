@@ -42,11 +42,16 @@ def test_import_loads_no_jax_or_reference_module():
         "horovod_tpu_torch.runner.elastic.worker, "
         "horovod_tpu_torch.runner.elastic.headless, "
         "horovod_tpu_torch.runner.elastic.preempt, "
-        "horovod_tpu_torch.runner.elastic.registration\n"
+        "horovod_tpu_torch.runner.elastic.registration, "
+        "horovod_tpu_torch.common.journal, horovod_tpu_torch.obs.tracing, "
+        "horovod_tpu_torch.profiler.trace_merge, horovod_tpu_torch.serve, "
+        "horovod_tpu_torch.serve.worker, horovod_tpu_torch.serve.loadgen\n"
         "from horovod_tpu_torch.parallel import ring_attention, "
         "ulysses_attention\n"
         "from horovod_tpu_torch.profiler import mfu_report, "
-        "train_step_flops, collective_scope\n"
+        "train_step_flops, collective_scope, merge_traces\n"
+        "from horovod_tpu_torch.serve import (ServingLoop, make_tp_lm_step, "
+        "make_rnn_lm_step, ServeFrontend, RequestRouter, PagedKVCache)\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=PKG.parent, check=True)
@@ -61,15 +66,22 @@ ELASTIC_SOURCES = ("elastic.py", "common/exceptions.py", "common/kv_keys.py",
                    "runner/elastic/__init__.py", "runner/elastic/worker.py",
                    "runner/elastic/headless.py", "runner/elastic/preempt.py",
                    "runner/elastic/registration.py")
+SERVE_SOURCES = ("common/journal.py", "obs/__init__.py", "obs/tracing.py",
+                 "profiler/trace_merge.py", "serve/__init__.py",
+                 "serve/admission.py", "serve/batcher.py",
+                 "serve/executor.py", "serve/frontend.py",
+                 "serve/kv_cache.py", "serve/loadgen.py", "serve/router.py",
+                 "serve/worker.py")
 
 
 def test_sources_import_no_jax_or_reference_module():
-    """The package's sources (the elastic slice's modules among them) and
-    the two chip scripts beside it."""
+    """The package's sources (the elastic and serving slices' modules
+    among them) and the two chip scripts beside it."""
     offenders = []
     scripts = [PKG.parent / "chip_smoke.py", PKG.parent / "compare_trees.py"]
     sources = sorted(PKG.rglob("*.py"))
-    assert {str(p.relative_to(PKG)) for p in sources} >= set(ELASTIC_SOURCES)
+    assert {str(p.relative_to(PKG)) for p in sources} >= \
+        set(ELASTIC_SOURCES + SERVE_SOURCES)
     for path in sources + scripts:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
@@ -91,6 +103,14 @@ def test_init_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         hvd.init()
     assert not hvd.is_initialized()
+
+
+def test_serving_entry_points_raise_without_cuda(no_cuda):
+    from horovod_tpu_torch.serve import make_rnn_lm_step, make_tp_lm_step
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_rnn_lm_step()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_tp_lm_step(axis=None)
 
 
 def test_make_train_step_without_device_raises_without_cuda(no_cuda):

@@ -1445,6 +1445,187 @@ def run_par_full(rank: int, world: int, case: str) -> dict:
             "launches": np.array(json.dumps(counts))}
 
 
+# ---------------------------------------------------------------------------
+# the serving plane's TP LM (tests/test_torch_serving_tp.py on gloo,
+# tests/test_torch_cuda_dist.py on four cards)
+
+SERVE_TP_DIMS = dict(vocab=64, hidden=32, mlp_dim=64, layers=2)
+SERVE_ROWS = 16
+
+
+def serve_inputs(vocab: int, rows: int = SERVE_ROWS, length: int = 32,
+                 seed: int = 0):
+    """``rows`` ragged prompts (1 to length - 1 tokens) padded to
+    ``length``: (tokens [rows, length] int32, lengths [rows] int32)."""
+    rng = np.random.RandomState(seed)
+    tokens = np.zeros((rows, length), np.int32)
+    lengths = np.ones(rows, np.int32)
+    for i in range(rows):
+        n = rng.randint(1, length)
+        tokens[i, :n] = rng.randint(0, vocab, n)
+        lengths[i] = n
+    return tokens, lengths
+
+
+def run_serve_tp(rank: int, world: int, dims: dict, rows: int = SERVE_ROWS,
+                 length: int = 32, keep_params: bool = True,
+                 timed: bool = True) -> dict:
+    """make_tp_lm_step over ``model`` on the fp32 and the int8 wire: this
+    rank's weight shard (with ``keep_params``); on the group's first rank
+    the last-position logits, the greedy tokens and (with ``timed``) the
+    median ms of 5 steps of each wire (the others follow). With ``timed``
+    the leader also reports the same model on its own device without a
+    group (``axis=None``), on each wire."""
+    import json
+    import time
+    from horovod_tpu_torch.serve.executor import make_tp_lm_step
+    dev = _device()
+    tokens, lengths = serve_inputs(dims["vocab"], rows, length)
+    out = {}
+    for wire in ("none", "int8"):
+        step, info = make_tp_lm_step(compression=wire, device=dev, **dims)
+        for k, v in step.model.state_dict().items() if keep_params else ():
+            out[f"{wire}|param|{k}"] = _np(v)
+        if not step.leader:
+            out[f"{wire}|followed"] = np.array(step.follow())
+            continue
+        out[f"{wire}|logits"] = _np(step.logits(tokens, lengths))
+        out[f"{wire}|tokens"] = step(tokens, lengths)
+        times = []
+        for _ in range(5 if timed else 0):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(tokens, lengths)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if timed:
+            out[f"{wire}|ms"] = np.array(sorted(times)[2])
+        out[f"{wire}|info"] = np.array(json.dumps(info))
+        step.stop()
+    if rank == 0 and timed:
+        for wire, key in (("none", "one"), ("int8", "one_int8")):
+            one, _ = make_tp_lm_step(compression=wire, device=dev,
+                                     axis=None, **dims)
+            out[f"{key}|logits"] = _np(one.logits(tokens, lengths))
+            out[f"{key}|tokens"] = one(tokens, lengths)
+            del one
+    return out
+
+
+def serve_requests(vocab: int, n: int = 16, seed: int = 1) -> list:
+    """``n`` prompts of 1 to 24 tokens from ``seed``."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, vocab, rng.randint(1, 25)).tolist()
+            for _ in range(n)]
+
+
+def greedy_decode(step, prompt: list, new_tokens: int, bucket: int,
+                  batch: int) -> list:
+    """A request decoded alone through ``step``, as the serving loop lays
+    out a batch: row 0 holds it, the other rows one padding token."""
+    seq = list(prompt)
+    for _ in range(new_tokens):
+        tokens = np.zeros((batch, bucket), np.int32)
+        lengths = np.ones(batch, np.int32)
+        tokens[0, :len(seq)] = seq
+        lengths[0] = len(seq)
+        seq.append(int(step(tokens, lengths)[0]))
+    return seq[len(prompt):]
+
+
+def run_serve_loop(rank: int, world: int, dims: dict, wire: str,
+                   n_requests: int = 16, new_tokens: int = 4) -> dict:
+    """The group's first rank serves ``n_requests`` through a batcher and
+    a ServingLoop over make_tp_lm_step while the other ranks follow; then
+    it decodes each prompt alone through the same step and stops the
+    followers. Returns, on the first rank, every request's status and
+    tokens and the alone-decoded tokens; on the others the steps
+    followed."""
+    from horovod_tpu_torch.metrics.registry import MetricsRegistry
+    from horovod_tpu_torch.serve.batcher import ContinuousBatcher
+    from horovod_tpu_torch.serve.executor import ServingLoop, make_tp_lm_step
+    step, _ = make_tp_lm_step(compression=wire, device=_device(), **dims)
+    if not step.leader:
+        return {"followed": np.array(step.follow())}
+    reg = MetricsRegistry()
+    batcher = ContinuousBatcher(max_batch=8, queue_depth=64,
+                                default_deadline_ms=120e3, max_len=64,
+                                registry=reg)
+    loop = ServingLoop(step, batcher, registry=reg).start()
+    prompts = serve_requests(dims["vocab"], n_requests)
+    try:
+        reqs = [batcher.submit(p, max_new_tokens=new_tokens)
+                for p in prompts]
+        for r in reqs:
+            r.wait(120.0)
+    finally:
+        loop.drain(timeout=60.0)
+        loop.stop()
+    out = {"status": np.array([r.status for r in reqs]),
+           "tokens": np.array([r.generated for r in reqs]),
+           "buckets": np.array([r.bucket for r in reqs])}
+    out["alone"] = np.array([
+        greedy_decode(step, p, new_tokens, r.bucket, batcher.max_batch)
+        for p, r in zip(prompts, reqs)])
+    step.stop()
+    return out
+
+
+def run_serve_fault(rank: int, world: int, dims: dict) -> dict:
+    """The group's first rank serves through a ServingLoop over the int8
+    step, whose second step fails on the leader after the step's
+    broadcasts, inside its forward between the first and the second
+    layer's reduction (a planted fault, as an OOM would). The loop must
+    stop for good: the requests it carried and those queued fail, later
+    submits are refused, and stop() sends nothing. The followers, left in
+    the second layer's reduction, must fail out of follow() once the
+    leader leaves the group. Returns the leader's statuses and the type of
+    its fatal error; the followers' steps and error type."""
+    from horovod_tpu_torch.metrics.registry import MetricsRegistry
+    from horovod_tpu_torch.serve.batcher import (AdmissionRejected,
+                                                 ContinuousBatcher)
+    from horovod_tpu_torch.serve.executor import ServingLoop, make_tp_lm_step
+    step, _ = make_tp_lm_step(compression="int8", device=_device(), **dims)
+    if not step.leader:
+        steps = 0
+        try:
+            steps = step.follow()
+            error = ""
+        except Exception as e:  # noqa: BLE001 — the error is the result
+            error = type(e).__name__
+        return {"followed": np.array(steps), "error": np.array(error)}
+    calls = {"n": 0}
+    mlp = step.model._mlp
+
+    def planted(*args):
+        calls["n"] += 1
+        if calls["n"] == dims["layers"] + 2:  # step 2, its second layer
+            raise RuntimeError("planted fault")
+        return mlp(*args)
+    step.model._mlp = planted
+    reg = MetricsRegistry()
+    batcher = ContinuousBatcher(max_batch=2, queue_depth=8,
+                                default_deadline_ms=60e3, max_len=64,
+                                registry=reg, vocab=dims["vocab"])
+    reqs = [batcher.submit([1, 2, 3], max_new_tokens=4) for _ in range(4)]
+    loop = ServingLoop(step, batcher, registry=reg).start()
+    for r in reqs:
+        r.wait(60.0)
+    stopped = loop.join(30.0)
+    try:
+        batcher.submit([1], max_new_tokens=1)
+        refused = False
+    except AdmissionRejected:
+        refused = True
+    step.stop()
+    loop.stop()
+    return {"status": np.array([r.status for r in reqs]),
+            "generated": np.array([len(r.generated) for r in reqs]),
+            "fatal": np.array(type(loop.fatal).__name__),
+            "stopped": np.array(stopped), "refused": np.array(refused),
+            "closed": np.array(str(batcher.closed))}
+
+
 def worker(rank: int, world: int, store_path: str, out_path: str,
            job: str, job_args: tuple = (), mesh=None,
            device: str = "cpu") -> None:
@@ -1509,7 +1690,8 @@ JOBS = {"collectives": run_collectives, "dp": run_dp_step,
         "eager_adasum": run_eager_adasum, "dist_opt": run_dist_opt,
         "layout": run_layout, "functions": run_functions, "sp": run_sp,
         "tp": run_tp, "pp": run_pp, "ep": run_ep,
-        "par_full": run_par_full}
+        "par_full": run_par_full, "serve_tp": run_serve_tp,
+        "serve_loop": run_serve_loop, "serve_fault": run_serve_fault}
 
 
 # ---------------------------------------------------------------------------
