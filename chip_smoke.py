@@ -226,6 +226,16 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                at T 32,768 with its 2 forward launches alone; mnist,
                serve and merged_trace side by side), each exiting 0
                after its own checks.
+17. check    - the port's static and protocol checks, last:
+               ``python -m horovod_tpu_torch.lint`` over this checkout
+               (no finding), ``python -m horovod_tpu_torch.verify`` (the
+               nine specs clean and exhaustive at the CI bound; all 24
+               mutants caught, one through the CLI with its numbered
+               trace), then ``--conformance`` over the directories the
+               launch legs wrote: the elastic job's KV WAL and journal
+               with its respawn's flight dump, the serve fleet's KV, and
+               the replicated leg's three replica WALs and journal. Every
+               replayed set must hold records and show no divergence.
 
 The train, frontend, bert and resnet lines carry the port's MFU
 (profiler/mfu.py ``mfu_report``: FLOPs per token or image from
@@ -1534,6 +1544,7 @@ def tune_gpt(device, out_dir):
     import torch
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.common import flight_recorder as fr
+    from horovod_tpu_torch.common import kv_keys
     from horovod_tpu_torch.metrics import MetricsExporter, get_registry
     from horovod_tpu_torch.models.gpt import GptSmall, lm_loss
     from horovod_tpu_torch.obs import attribution, top
@@ -1622,7 +1633,7 @@ def tune_gpt(device, out_dir):
         with redirect_stdout(view):
             top_rc = top.main(["--once", "--tune", "--targets",
                                f"127.0.0.1:{exporter.port}"])
-        published = kv.get_json(f"tune_config/{TUNE['job']}")
+        published = kv.get_json(kv_keys.tune_config(TUNE["job"]))
         search = ts._search
         del model, opt, step, fresh, fresh_opt, fresh_step, state
         torch.cuda.empty_cache()
@@ -3613,6 +3624,7 @@ def launch_elastic(out_dir):
         "driver_records": [
             {k: e.get(k) for k in ("event", "generation", "local_rank")}
             | e.get("detail", {}) for e in events],
+        "artifacts": {"job": job_dir, "end": end_dir},
         "launches": counts}
 
 
@@ -3736,6 +3748,7 @@ def launch_serve(device, out_dir):
         for t in threads:
             t.join(timeout=240)
         wall = time.time() - t0
+        # hvd-lint: disable=HVL008 - the user's stop signal, a KVClient write
         kv.put_json(kv_keys.serve_stop(), {"ts": time.time()})
     finally:
         rc = job.finish(LAUNCH["timeout_s"])
@@ -3761,7 +3774,8 @@ def launch_serve(device, out_dir):
             "launch_to_serve_targets_s": t_listed - job.t0,
             "top_serving_row": top_rows[0],
             "requests_wall_s": wall,
-            "prompt_lengths": [len(p) for p in prompts]}
+            "prompt_lengths": [len(p) for p in prompts],
+            "artifacts": {"kv": kv_dir}}
 
 
 def run_leg_train(steps):
@@ -3873,6 +3887,7 @@ def _kill_kv_leader(kv_dir, t_step):
     host, _, port = eps[0].rpartition(":")
     client = KVClient(host, int(port), endpoints=eps)
     key, value = kv_keys.soak_event(1), {"acked_after_step": t_step}
+    # hvd-lint: disable=HVL008 - a client write to the replica fleet
     client.put_json(key, value, deadline=20.0)
     old = wait_for_leader(eps, timeout=10.0)
     t_kill = time.time()
@@ -4003,6 +4018,7 @@ def launch_replicated(train_line, out_dir):
         "steps_during_election": sum(
             1 for w in walls
             if t_kill <= w <= t_kill + kill["kill_to_new_leader_s"]),
+        "artifacts": {"kv": kv_dir, "journal": jdir},
         "launches": counts}
 
 
@@ -4114,6 +4130,97 @@ def launch_phase(device, card, train_line, out_dir):
                     "examples": examples, "launches": counts}
 
 
+def _replay(name, args, expect):
+    """``python -m horovod_tpu_torch.verify --conformance <args> --json``
+    over one leg's directories: each artifact kind in ``expect`` (kind ->
+    how many sets) must be checked, every set must hold records, and the
+    replay must find no divergence. Returns {set: {records, divergences}}."""
+    rc, text, err = _tool(["horovod_tpu_torch.verify", "--conformance",
+                           *args, "--json"])
+    try:
+        report = json.loads(text)
+    except ValueError:
+        raise AssertionError(f"check/{name}: conformance exited {rc}: "
+                             f"{text}{err}") from None
+    kinds = {}
+    for entry in report["checked"]:
+        kind = entry.split(":")[0]
+        kinds[kind] = kinds.get(kind, 0) + 1
+    empty = [e for e, n in report["records"].items() if n <= 0]
+    if rc != 0 or report["divergences"] or kinds != expect or empty:
+        raise AssertionError(f"check/{name}: conformance exited {rc} over "
+                             f"{args}: sets {kinds} (want {expect}), "
+                             f"empty {empty}: {report['divergences']}")
+    return {entry: {"records": n, "divergences": 0}
+            for entry, n in report["records"].items()}
+
+
+def check_phase(card, launch_line):
+    """The port's static and protocol checks, then the launch legs'
+    artifacts replayed: ``python -m horovod_tpu_torch.lint`` over this
+    checkout (no finding), ``python -m horovod_tpu_torch.verify`` (every
+    spec clean and exhaustive at the CI bound; every mutant caught, one
+    through the CLI), and its ``--conformance`` over the elastic leg's
+    KV WAL, journal and the flight dump of its respawn, the serve
+    fleet's KV, and the replicated leg's three replica WALs and journal:
+    each set must hold records and replay with no divergence. The six
+    command-line runs go side by side (each a fresh Python importing
+    torch), the mutants in this process meanwhile."""
+    from concurrent.futures import ThreadPoolExecutor
+    from horovod_tpu_torch.verify import MUTANTS, SPECS, check, make_spec
+    from horovod_tpu_torch.verify.cli import CI_DEPTH, CI_MAX_STATES
+    t0 = time.perf_counter()
+    elastic = launch_line["elastic"]["artifacts"]
+    replicated = launch_line["replicated"]["artifacts"]
+    with ThreadPoolExecutor(6) as pool:
+        lint = pool.submit(_tool, ["horovod_tpu_torch.lint", "--json"])
+        verify = pool.submit(_tool, ["horovod_tpu_torch.verify", "--json"])
+        mutant_cli = pool.submit(_tool, ["horovod_tpu_torch.verify",
+                                         "--mutant",
+                                         "epoch_accept_stale_notify"])
+        replays = {name: pool.submit(_replay, name, args, expect)
+                   for name, args, expect in (
+                       ("elastic", [elastic["job"], "--flight-dir",
+                                    elastic["end"]],
+                        {"kv-wal": 1, "flight": 1, "journal": 1}),
+                       ("serve", [launch_line["serve"]["artifacts"]["kv"]],
+                        {"kv-wal": 1}),
+                       ("replicated", [os.path.dirname(replicated["kv"])],
+                        {"kv-wal": LAUNCH["replicas"], "journal": 1}))}
+        mutants = {}
+        for mutant, (spec, _, _) in sorted(MUTANTS.items()):
+            res = check(make_spec(spec, mutant=mutant), depth=CI_DEPTH,
+                        max_states=CI_MAX_STATES)
+            if not res.violations:
+                raise AssertionError(f"check/mutants: {mutant} not caught")
+            v = res.violations[0]
+            mutants[mutant] = {"invariant": v.invariant,
+                               "trace": len(v.trace)}
+        replays = {name: f.result() for name, f in replays.items()}
+        rc, text, err = lint.result()
+        findings = json.loads(text) if text.strip().startswith("[") \
+            else None
+        if rc != 0 or findings != []:
+            raise AssertionError(f"check/lint: exited {rc}: {text}{err}")
+        rc, text, err = verify.result()
+        results = json.loads(text)["results"] if rc == 0 else []
+        specs = {r["spec"]: {"states": r["states"],
+                             "transitions": r["transitions"],
+                             "depth": r["depth"]} for r in results
+                 if r["exhaustive"] and not r["violations"]}
+        if rc != 0 or sorted(specs) != sorted(SPECS):
+            raise AssertionError(f"check/specs: exited {rc}: {text}{err}")
+        rc, text, err = mutant_cli.result()
+        if rc != 1 or "INVARIANT VIOLATED" not in text or \
+                "  1. " not in text:
+            raise AssertionError(f"check/mutant CLI: exited {rc}: "
+                                 f"{text}{err}")
+    return {"phase": "check", "nvidia_smi": card,
+            "seconds": time.perf_counter() - t0, "lint_findings": 0,
+            "specs": specs, "mutants_caught": len(mutants),
+            "mutants": mutants, "replays": replays}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -4223,6 +4330,7 @@ def main() -> int:
                                               opts.out)
     counts.update(launch_counts)
     emit(launch_line)
+    emit(check_phase(card, launch_line))
 
     kernels = []
     for name in NAMES:

@@ -103,6 +103,7 @@ from horovod_tpu_torch.common.timeline import Timeline
 from horovod_tpu_torch.common.reduce_ops import (Adasum, Average, Max, Min,
                                                  Op, Product, Sum)
 from horovod_tpu_torch.profiler.annotate import host_annotation
+from horovod_tpu_torch.verify import rules
 
 ALLREDUCE, ALLGATHER, BROADCAST, ALLTOALL, BARRIER = (
     "allreduce", "allgather", "broadcast", "alltoall", "barrier")
@@ -541,6 +542,7 @@ class EagerExecutor:
                     if (self._waiting or self._join) and not self._new \
                             and not self._stop:
                         self._cv.wait(timeout=self._cycle_s)
+        # hvd-lint: disable=HVL003 - _fail_all hands the error to every waiter
         except Exception as err:  # noqa: BLE001 - fail every waiter, exit
             basics.note_failure(err)
             self._fail_all(f"eager negotiation failed: {err!r}")
@@ -721,9 +723,10 @@ class EagerExecutor:
         for name, subs in ready:
             error = _check(subs)
             first = next(iter(subs.values()))
-            if lane and error is None and first.group_id < 0 and \
-                    first.op_type != BARRIER and _nbytes(first) <= \
-                    self._params.low_latency_threshold_bytes:
+            if lane and error is None and rules.express_eligible(
+                    _nbytes(first), self._params.low_latency_threshold_bytes,
+                    grouped=first.group_id >= 0,
+                    data_bearing=first.op_type != BARRIER):
                 # the express lane (controller.cc:263-313): alone, and
                 # ahead of every bulk unit of the round
                 express.append([(name, subs, None)])

@@ -1,10 +1,12 @@
 """Environment variables the port reads.
 
 Counterpart of ``horovod_tpu/common/env_registry.py`` (``env_int``,
-``env_float``, ``env_bool``, ``env_str``, ``env_is_set``), limited to the
-variables this package reads, with the reference's defaults. Same parsing
+``env_float``, ``env_bool``, ``env_str``, ``env_is_set``,
+``render_env_table``), limited to the variables this package reads or sets
+for the processes it starts, with the reference's defaults. Same parsing
 rules: unset or empty means the default; a boolean is false for "0",
-"false", "no" and "off" (any case) and true for anything else.
+"false", "no" and "off" (any case) and true for anything else. Lint rules
+HVL004-HVL006 (``horovod_tpu_torch/lint``) hold the package to it.
 """
 
 from __future__ import annotations
@@ -88,6 +90,21 @@ REGISTRY = {
                      "process groups (set by the launcher)"),
     "HOROVOD_CONTROLLER_PORT": (0, "TCPStore port of the job's process "
                                    "groups (set by the launcher)"),
+    "HOROVOD_CONTROLLER_DATA_PORT": (
+        0, "second port the launcher reserves beside the controller port "
+           "(the reference engine's eager data channel; the port's "
+           "workers read none of it, the launcher and cluster_job set it "
+           "so the reference's launch contract holds)"),
+    "HOROVOD_CLUSTER_JOB": (
+        None, "cluster-scheduler job id scoping the controller endpoint "
+              "negotiation in the KV (runner/cluster_job.py)"),
+    "HOROVOD_CLUSTER_ROUND": (
+        "0", "per-run scope of the controller endpoint negotiation "
+             "(actor pools of the Ray executors)"),
+    "HOROVOD_SMALL_TENSOR_ALGO": (
+        "star", "the reference engine's small-allreduce route (star | "
+                "rd); the launcher refuses --small-tensor-algo, which would "
+                "set it, since NCCL picks its own route"),
     "HOROVOD_GLOO_TIMEOUT_SECONDS": (
         30.0, "elastic workers: the process groups' timeout, which bounds "
               "how long a collective with a dead or frozen peer waits"),
@@ -372,3 +389,23 @@ def env_raw(name: str):
 def env_is_set(name: str) -> bool:
     """True when registered variable ``name`` is set and non-empty."""
     return _raw(name) not in (None, "")
+
+
+def render_env_table() -> str:
+    """The markdown table README.md's port section embeds between the
+    ``<!-- torch-env-table:begin -->`` / ``<!-- torch-env-table:end -->``
+    markers (counterpart of the reference's ``render_env_table``, over
+    this registry's columns). Regenerate with ``python -m
+    horovod_tpu_torch.lint --write-env-table``; lint rule HVL006 fails
+    when the embedded copy drifts."""
+    lines = ["| Variable | Default | Description |", "|---|---|---|"]
+    for name in sorted(REGISTRY):
+        default, doc = REGISTRY[name]
+        if default is None:
+            shown = "_(unset)_"
+        elif isinstance(default, bool):
+            shown = "1" if default else "0"
+        else:
+            shown = f"`{default}`"
+        lines.append(f"| `{name}` | {shown} | {doc} |")
+    return "\n".join(lines) + "\n"

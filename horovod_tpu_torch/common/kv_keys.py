@@ -329,6 +329,20 @@ def match_prefix(prefix: str) -> Optional[str]:
     return None
 
 
+def slash_prefixes() -> Dict[str, str]:
+    """{literal prefix -> family} for every non-singleton family — the
+    HVL007 scan list (singletons are matched at KV-accessor call sites
+    instead, since bare words like 'generation' appear in ordinary
+    strings)."""
+    return {fam.prefix: fam.name for fam in FAMILIES.values()
+            if not fam.exact}
+
+
+def singleton_names() -> Dict[str, str]:
+    """{exact key -> family} for singleton families."""
+    return {fam.pattern: fam.name for fam in FAMILIES.values() if fam.exact}
+
+
 # -- WAL shard routing -------------------------------------------------------
 
 def shard_of(family: str) -> str:

@@ -436,14 +436,15 @@ def make_train_step(model: nn.Module,
     TrainStepOutput(loss, aux)`` moves the batch to the device, runs forward
     and backward, allreduces the gradients over the replica axes (fused per
     dtype, ``op`` with the pre/postscale factors; with ``compression`` in
-    its wire dtype; ``hierarchical``, default ``HOROVOD_HIERARCHICAL_
-    ALLREDUCE``, in two levels), steps ``optimizer`` and returns the
-    replica-averaged loss. With a ``seed`` the step calls ``loss_fn(model,
-    batch, generator)``, the generator seeded from the seed and the
-    replica's index (dropout masks differ across replicas and repeat on a
-    rerun). Leaves of ``aux`` are made replica-consistent: floating leaves
-    averaged, integer leaves summed. ``remat=True`` recomputes activations
-    in the backward pass (``torch.utils.checkpoint``, non-reentrant).
+    its wire dtype; ``hierarchical``, default
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE``, in two levels), steps ``optimizer``
+    and returns the replica-averaged loss. With a ``seed`` the step calls
+    ``loss_fn(model, batch, generator)``, the generator seeded from the
+    seed and the replica's index (dropout masks differ across replicas and
+    repeat on a rerun). Leaves of ``aux`` are made replica-consistent:
+    floating leaves averaged, integer leaves summed. ``remat=True``
+    recomputes activations in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant).
     ``device=None`` means the device ``init()`` chose (``cuda:local_rank``);
     without CUDA that raises unless ``device="cpu"`` is given. The model is
     moved to the device.

@@ -1,8 +1,9 @@
 """Runtime trace conformance: replay real artifacts against the protocol
 rules.
 
-Counterpart of ``horovod_tpu/verify/conformance.py``, copied (the model
-checker of ``horovod_tpu/verify`` is not ported). Three artifact classes,
+Counterpart of ``horovod_tpu/verify/conformance.py``, copied (the
+port's model checker beside it, ``specs.py``, argues about the same
+protocols from the other side). Three artifact classes,
 all produced by ordinary operation (no special tracing mode):
 
 - **KV write-ahead logs** (``HOROVOD_KV_DIR/wal.log`` + snapshot, and the
@@ -389,16 +390,39 @@ def check_journal(journal_dir) -> List[str]:
 # Artifact-directory front door
 # ===========================================================================
 
+def kv_record_count(kv_dir) -> int:
+    """Records a KV directory holds: the ops of every shard's WAL plus the
+    keys of every shard's snapshot (what a replay has to go on)."""
+    kv_dir = Path(kv_dir)
+    n = 0
+    for f in kv_dir.glob("wal*.log"):
+        n += sum(1 for _ in iter_wal_ops(kv_dir, f.name))
+    for f in kv_dir.glob("snapshot*.json"):
+        n += len(load_snapshot_keys(kv_dir, f.name))
+    return n
+
+
+def journal_record_count(journal_dir) -> int:
+    """Records of every writer's segments in a journal directory."""
+    from horovod_tpu_torch.common import journal as _journal
+    return sum(1 for segments in _journal.segment_files(journal_dir).values()
+               for seg in segments for _ in _journal.iter_segment(seg))
+
+
 def check_artifacts(path, kv_dir=None, flight_dir=None,
                     journal_dir=None) -> dict:
     """Replay every artifact found under ``path`` (or the explicit
     ``kv_dir``/``flight_dir``/``journal_dir`` overrides):
-    ``{"checked": [...], "divergences": [...]}``. A soak artifact
-    directory usually holds the control-plane KV dir (wal.log), a set
-    of flight_rank*.json, and a journal/ of journal_*.log segments."""
+    ``{"checked": [...], "divergences": [...], "records": {...}}``;
+    ``records`` is each checked artifact set's record count (WAL ops and
+    snapshot keys, flight events, journal records), so that a caller can
+    refuse an empty directory. A soak artifact
+    directory usually holds the control-plane KV dir (wal.log), a set of
+    flight_rank*.json, and a journal/ of journal_*.log segments."""
     path = Path(path)
     checked: List[str] = []
     divergences: List[str] = []
+    records: Dict[str, int] = {}
 
     kv_candidates = [Path(kv_dir)] if kv_dir else [
         d for d in [path, path / "kv", *sorted(path.glob("**/"))]
@@ -410,6 +434,7 @@ def check_artifacts(path, kv_dir=None, flight_dir=None,
             continue
         seen.add(d)
         checked.append(f"kv-wal: {d}")
+        records[checked[-1]] = kv_record_count(d)
         divergences += [f"{d}: {line}" for line in check_kv_wal(d)]
 
     fdir = Path(flight_dir) if flight_dir else path
@@ -424,6 +449,8 @@ def check_artifacts(path, kv_dir=None, flight_dir=None,
         by_dir.setdefault(f.parent, {})[int(dump.get("rank", -1))] = dump
     for d, dumps in sorted(by_dir.items()):
         checked.append(f"flight: {d} (ranks {sorted(dumps)})")
+        records[checked[-1]] = sum(len(dump.get("events", []))
+                                   for dump in dumps.values())
         divergences += [f"{d}: {line}"
                         for line in check_flight_dumps(dumps)]
 
@@ -437,10 +464,12 @@ def check_artifacts(path, kv_dir=None, flight_dir=None,
             continue
         seen.add(d)
         checked.append(f"journal: {d}")
+        records[checked[-1]] = journal_record_count(d)
         divergences += [f"{d}: {line}" for line in check_journal(d)]
 
     if not checked:
         divergences.append(
             f"{path}: no wal.log/snapshot.json, flight_rank*.json, or "
             "journal_*.log artifacts found")
-    return {"checked": checked, "divergences": divergences}
+    return {"checked": checked, "divergences": divergences,
+            "records": records}

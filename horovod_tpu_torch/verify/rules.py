@@ -3,9 +3,12 @@ point of the control plane.
 
 Counterpart of ``horovod_tpu/verify/rules.py``, copied: the replicated KV
 (``runner/replica_kv.py``) reads its vote-grant and majority rules here,
-and ``tests/test_torch_replica_kv.py`` holds every rule equal to the
-reference's over a grid of epochs, terms and lengths. The reference's
-model checker, which also reads them, is not ported.
+the eager plane (``common/eager.py``) its express-lane rule, and the
+port's model checker (``specs.py``) reads all of them;
+``tests/test_torch_replica_kv.py`` holds every rule equal to the
+reference's over a grid of epochs, terms and lengths, and
+``tests/test_torch_verify.py`` holds the epoch rules to the port's
+``KVServer`` and ``observe_epoch`` and the express rule to ``_batches``.
 """
 
 from __future__ import annotations

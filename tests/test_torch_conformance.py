@@ -158,5 +158,8 @@ def test_check_artifacts_over_one_directory_equals_reference(
     for r, d in cases.synthetic_dumps(5, "desync").items():
         (fdir / f"flight_rank{r}.json").write_text(json.dumps(d))
     got = conformance.check_artifacts(tmp_path)
+    records = got.pop("records")  # the port's own addition
     assert got == ref_conf.check_artifacts(tmp_path)
     assert len(got["checked"]) == 3 and got["divergences"]
+    assert sorted(records) == sorted(got["checked"])
+    assert all(n > 0 for n in records.values()), records

@@ -88,7 +88,13 @@ def test_import_loads_no_jax_or_reference_module():
         "horovod_tpu_torch.examples.synthetic_benchmark, "
         "horovod_tpu_torch.examples.long_context_attention, "
         "horovod_tpu_torch.examples.serve, "
-        "horovod_tpu_torch.examples.merged_trace\n"
+        "horovod_tpu_torch.examples.merged_trace, "
+        "horovod_tpu_torch.lint, horovod_tpu_torch.lint.base, "
+        "horovod_tpu_torch.lint.cli, horovod_tpu_torch.lint.py_collectives, "
+        "horovod_tpu_torch.lint.py_env, horovod_tpu_torch.lint.py_kv, "
+        "horovod_tpu_torch.verify.spec, horovod_tpu_torch.verify.checker, "
+        "horovod_tpu_torch.verify.specs, horovod_tpu_torch.verify.cli, "
+        "horovod_tpu_torch.verify.engine_constants\n"
         "from horovod_tpu_torch import run\n"
         "from horovod_tpu_torch.parallel import ring_attention, "
         "ulysses_attention\n"
@@ -138,18 +144,23 @@ RUN_SOURCES = ("verify/rules.py", "runner/replica_kv.py",
                "examples/synthetic_benchmark.py",
                "examples/long_context_attention.py", "examples/serve.py",
                "examples/merged_trace.py")
+CHECK_SOURCES = ("lint/__init__.py", "lint/__main__.py", "lint/base.py",
+                 "lint/cli.py", "lint/py_collectives.py", "lint/py_env.py",
+                 "lint/py_kv.py", "verify/__main__.py", "verify/spec.py",
+                 "verify/checker.py", "verify/specs.py", "verify/cli.py",
+                 "verify/engine_constants.py")
 
 
 def test_sources_import_no_jax_or_reference_module():
-    """The package's sources (the elastic, serving, launcher and
-    post-mortem slices' modules among them) and the two chip scripts
+    """The package's sources (the elastic, serving, launcher, post-mortem
+    and static-check slices' modules among them) and the two chip scripts
     beside it."""
     offenders = []
     scripts = [PKG.parent / "chip_smoke.py", PKG.parent / "compare_trees.py"]
     sources = sorted(PKG.rglob("*.py"))
     assert {str(p.relative_to(PKG)) for p in sources} >= \
         set(ELASTIC_SOURCES + SERVE_SOURCES + LAUNCH_SOURCES + OBS_SOURCES +
-            RUN_SOURCES)
+            RUN_SOURCES + CHECK_SOURCES)
     for path in sources + scripts:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
