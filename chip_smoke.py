@@ -10,14 +10,27 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 
 1. device    - card name and power limit (nvidia-smi);
 2. build     - nvcc builds the three flash-attention kernels from
-               horovod_tpu_torch/ops/csrc, both sources at once;
+               horovod_tpu_torch/ops/csrc, every instantiation (fp32, bf16
+               and fp16 at head widths 32, 64, 128, 192 and 256), both
+               sources at once;
 3. resources - registers, spills, shared memory and blocks per SM of every
-               kernel as the card reports them; the bf16 TMA/wgmma kernels
-               must not spill;
+               kernel instantiation as the card reports them; the bf16 and
+               fp16 TMA/wgmma kernels must not spill;
 4. kernels   - each CUDA kernel against its plain PyTorch version on the
-               same card tensors: the GPT-2-small shape (bf16, causal and
-               not), the BERT-Large shape (bf16, non-causal), and small
-               fp32/bf16 shapes with offsets, a fully-future
+               same card tensors: the GPT-2-small shape (bf16 causal and
+               not, fp16 causal), the BERT-Large shape (bf16, non-causal),
+               the widths the kernels run at a wider instantiation (bf16
+               at d 16, 48, 80, 96, causal and full, with a dlse), d 192
+               and 256 (bf16 causal and full, fp32 and fp16 causal, a
+               ragged 200 in bf16), v's width apart from q's (MLA's
+               192/128 and 64/32, with offsets), a 16-bit width the TMA
+               cannot read in place (the wrapper's zero-padded copy), the
+               widths phase's bf16 shapes (B 8, T 1024, causal, 8 heads at
+               d 96 and 3 at d 256), the gradients at the main path's
+               16-bit shapes (fp16 at d 64, bf16 at d 96 and 256) against
+               float64 (no farther than the plain version's, normwise,
+               and the noise in rows that see one key under the floor),
+               and small fp32/bf16 shapes with offsets, a fully-future
                block, Tq != Tk, ragged lengths, a single tile, one q tile
                against 1024 keys, rows with no visible key under 512-row
                reference tiles, and return_lse with a dlse cotangent, o
@@ -39,7 +52,11 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                blocks of one of four ranks' ring shard (B=1, T=8192, H=12,
                causal, q at global position 24576): its diagonal block (k
                at 24576) and an off-diagonal one (k at 0, every pair
-               visible, against SDPA without a mask);
+               visible, against SDPA without a mask); then at the GPT-2
+               small token count (B=8, T=1024, causal, H*d about 768) in
+               fp16 at d 64, in bf16 at d 96 (8 heads) and 256 (3 heads),
+               MLA's 192/128 (4 heads), and d 60 (the zero-padded copy)
+               beside d 64 in bf16;
 7. crossover - dense against flash attention, forward plus backward, over
                the key length (the routing threshold DEFAULT_FLASH_MIN_SEQ);
 8. train     - the main path: init() on NCCL, GptSmall (bf16 compute, fp32
@@ -47,6 +64,22 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                and bf16 gradient compression, 5 steps on one fixed batch;
                the loss must be finite and fall, and each kernel must have
                launched 12 times per step;
+8a. widths   - the main path at the kernels' other dtypes and widths:
+               GPT-2 small (12 layers, hidden 768, seq 1024, batch 8) as
+               in train, in fp16 at 12 heads, in bf16 at 8 heads (d 96)
+               and at 3 heads (d 256), 5 steps each on the flash kernels,
+               then 5 steps from the same weights on the dense route
+               (HOROVOD_FLASH_MIN_SEQ above 1024), fp16 with its loss
+               scaled by 2^13: every loss finite, the flash run's within
+               rel 1e-4 of the dense run's at step 1 and 5e-5 (fp16) or
+               5e-4 (bf16) after, step 1's gradients of both routes
+               against fp32 (the flash route's error at most 5 and 1.5
+               times the dense route's, largest and median over leaves,
+               where ds rounded to 16 bits puts the query and key leaves
+               about twice as far; fp16's also unscaled, with the share
+               of ds below fp16's smallest normal), 12 launches of each
+               kernel a step and none on the dense route; step ms and MFU
+               of each flash run;
 9. collectives - every collective of parallel/collectives.py once on card
                tensors, on NCCL at world 1, in fp32, bf16 and int32, each
                equal to its world-1 value (Adasum and a reversed axis tuple
@@ -288,8 +321,8 @@ The train, frontend, torch_api, bert and resnet lines carry the port's MFU
 (profiler/mfu.py ``mfu_report``: FLOPs per token or image from
 FlopCounterMode plus the flash kernels' share, over the card's bf16 peak),
 which must lie in (0, 1]. Then the kernels line (launches per path: gpt,
-frontend, torch_api, obs, tune, bert, resnet, parallel, elastic, faults,
-serve, launch, run, replicated, examples), the
+widths, frontend, torch_api, obs, tune, bert, resnet, parallel, elastic,
+faults, serve, launch, run, replicated, examples), the
 nvidia-smi
 line, and
 the final ``{"ok": true, "device": ...}`` line. ``--out DIR`` also writes
@@ -313,7 +346,7 @@ import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 MAIN = dict(b=8, t=1024, h=12, d=64)  # GPT-2 small, per-GPU batch 8
 BERT_SHAPE = dict(b=8, t=512, h=16, d=64)  # BERT-Large, per-GPU batch 8
@@ -387,51 +420,65 @@ def tolerances(dtype):
     (2^-8 relative) of its own value or of the largest value in its row,
     and the whole tensor by about one ulp in norm. Scaling by the row
     keeps late causal rows, which average hundreds of keys and are far
-    smaller than the first rows, to their own resolution."""
+    smaller than the first rows, to their own resolution. fp16 (2^-11
+    relative) is held to the same bounds. The gradients' floor: where a
+    row's gradient cancels to about zero (a query that sees one key: ds =
+    p (dp - delta) scale), what is left is the noise of dp's fp32 sum,
+    which differs between wgmma's order and the plain version's and from a
+    float64 reference by up to 2.5e-6 in the kernel and 1.9e-6 in the
+    plain version (``float64_noise`` at the main path's 16-bit shapes on an
+    H100; PERF.md §6): the floor is 4e-6."""
     import torch
     if dtype == torch.float32:
         return dict(fwd=(2e-4, 2e-5, 0.0, None), grad=(2e-3, 2e-4, 0.0, None),
                     lse=(1e-4, 1e-5, 0.0, None))
-    return dict(fwd=(2e-2, 1e-6, 2e-2, 1e-2), grad=(2e-2, 1e-6, 2e-2, 1e-2),
+    return dict(fwd=(2e-2, 1e-6, 2e-2, 1e-2), grad=(2e-2, 4e-6, 2e-2, 1e-2),
                 lse=(1e-4, 2e-3, 0.0, None))
 
 
 NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the main path's 16-bit shapes held against float64 (``float64_noise``)
+FLOAT64_CASES = ("main_f16_causal", "widths_bf16_h8_d96_causal",
+                 "widths_bf16_h3_d256_causal")
 # the kernel cases at the shapes the main paths give the kernels (GPT-2
 # small causal, BERT-Large non-causal, the world-1 ring's one call): the
 # kernels line's max_abs_err
 MAIN_PATH_CASES = ("main_bf16_causal", "bertlarge_bf16_full",
-                   "par_bf16_t32768_causal")
+                   "par_bf16_t32768_causal", "main_f16_causal",
+                   "widths_bf16_h8_d96_causal", "widths_bf16_h3_d256_causal")
 
 
 def kernel_resources():
     """Registers, spill bytes, shared memory and resident blocks per SM of
-    every kernel instantiation, as the card reports them. The bf16
-    TMA/wgmma kernels (forward, dq and dk/dv) must not spill: their
-    accumulators are meant to live in registers."""
-    import torch
+    every kernel instantiation (each dtype at each head width), as the
+    card reports them. The bf16 and fp16 TMA/wgmma kernels (forward, dq
+    and dk/dv) must not spill: their accumulators are meant to live in
+    registers."""
     from horovod_tpu_torch.ops import flash_attention as fa
     out = {}
     for name in NAMES:
-        for dt in (torch.float32, torch.bfloat16):
-            for d in (32, 64, 128):
+        for dt in fa._KERNEL_DTYPES:
+            for d in fa._KERNEL_HEAD_DIMS:
                 info = fa.kernel_info(name, dt, d)
                 key = f"{name}/{str(dt)[6:]}/d{d}"
                 out[key] = info
-                if dt == torch.bfloat16 and info["local_bytes"]:
+                if dt.itemsize == 2 and info["local_bytes"]:
                     raise AssertionError(f"{key} spills: {info}")
     return out
 
 
 def kernel_inputs(case, device):
+    """q, k, v, do (v and do ``dv`` wide, d by default) and dlse of a
+    case, from its seed."""
     import torch
     g = torch.Generator().manual_seed(case.get("seed", 0))
     dt = case["dtype"]
     b, tq, tk, h, d = case["b"], case["tq"], case["tk"], case["h"], case["d"]
+    dv = case.get("dv", d)
     q = torch.randn(b, tq, h, d, generator=g).to(device, dt)
     k = torch.randn(b, tk, h, d, generator=g).to(device, dt)
-    v = torch.randn(b, tk, h, d, generator=g).to(device, dt)
-    do = torch.randn(b, tq, h, d, generator=g).to(device, dt)
+    v = torch.randn(b, tk, h, dv, generator=g).to(device, dt)
+    do = torch.randn(b, tq, h, dv, generator=g).to(device, dt)
     dlse = torch.randn(b, h, tq, generator=g).to(device) \
         if case.get("dlse") else torch.zeros(b, h, tq, device=device)
     return q, k, v, do, dlse
@@ -483,7 +530,7 @@ def check_case(case, device):
 
 def kernel_cases():
     import torch
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     m = dict(b=MAIN["b"], tq=MAIN["t"], tk=MAIN["t"], h=MAIN["h"],
              d=MAIN["d"], bq=512, bk=512, dtype=bf16)
     small = dict(b=2, tq=256, tk=256, h=4, bq=128, bk=128)
@@ -559,7 +606,98 @@ def kernel_cases():
              seed=21, **shard),
         dict(name="ring_shard_q16384_k24576_future", q_off=2 * t,
              k_off=3 * t, future=True, seed=22, **shard),
+        # the kernels' whole envelope: fp16 at the main path's shape; the
+        # widths that run at a wider instantiation (16 -> 32, 48 -> 64,
+        # 80 and 96 -> 128) and the two widest, causal and full, with a
+        # dlse; d 256 in fp32 and fp16; v's width apart from q's (MLA's
+        # 192/128, and 64/32) with offsets; a ragged 200 at d 256; and a
+        # 16-bit width whose rows the TMA cannot address (36 and 28: the
+        # wrapper's zero-padded copy)
+        dict(name="main_f16_causal", causal=True, seed=23,
+             **dict(m, dtype=f16)),
+        *[dict(name=f"bf16_d{d}_{'causal' if c else 'full'}", d=d, causal=c,
+               dtype=bf16, dlse=True, seed=24 + d + c, **small)
+          for d in (16, 48, 80, 96, 192, 256) for c in (True, False)],
+        dict(name="f32_d256_causal", d=256, causal=True, dtype=f32,
+             dlse=True, seed=25, **small),
+        dict(name="f32_d192_full", d=192, causal=False, dtype=f32,
+             dlse=True, seed=31, **small),
+        dict(name="f16_d256_causal", d=256, causal=True, dtype=f16,
+             dlse=True, seed=26, **small),
+        dict(name="bf16_mla_d192_dv128_offsets", b=2, tq=128, tk=256, h=2,
+             d=192, dv=128, bq=128, bk=128, causal=True, q_off=128.0,
+             dtype=bf16, dlse=True, seed=27),
+        dict(name="bf16_d64_dv32_offsets", b=2, tq=128, tk=256, h=2, d=64,
+             dv=32, bq=128, bk=128, causal=True, q_off=128.0, dtype=bf16,
+             dlse=True, seed=28),
+        dict(name="bf16_d256_ragged_200", b=2, tq=200, tk=200, h=2, d=256,
+             bq=200, bk=200, causal=True, dtype=bf16, dlse=True, seed=29),
+        dict(name="bf16_d36_dv28_padded_copy", d=36, dv=28, causal=True,
+             dtype=bf16, dlse=True, seed=30, **small),
+        # the widths phase's bf16 shapes (GPT-2 small at 8 and 3 heads): d
+        # 96 at instantiation 128, and d 256, where dk/dv splits over the
+        # grid's z and the dS.K and dS^T.Q products run in 64-column panels
+        dict(name="widths_bf16_h8_d96_causal", causal=True, seed=32,
+             **dict(m, h=8, d=96)),
+        dict(name="widths_bf16_h3_d256_causal", causal=True, seed=33,
+             **dict(m, h=3, d=256)),
     ]
+
+
+def float64_noise(device, name):
+    """The gradients of case ``name`` (causal, no dlse) against float64 (ds
+    unrounded): the kernel's and the plain version's largest and normwise
+    error over all rows, and the largest over the rows that see one key (t
+    = 0, where dq = ds k cancels to about zero and what is left is the
+    noise of dp's sum). The kernel must stay inside the 16-bit gradients'
+    floor there (4e-6, ``tolerances``), and within 1.1 times the plain
+    version's normwise error everywhere."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    case = next(c for c in kernel_cases() if c["name"] == name)
+    q, k, v, do, dlse = kernel_inputs(case, device)
+    args = (case["causal"], case["d"] ** -0.5, 0.0, 0.0, case["bq"],
+            case["bk"])
+    o, lse = fa.flash_fwd_plain(q, k, v, *args)
+    corr = (dlse - (do.float() * o.float()).sum(-1).transpose(1, 2)) \
+        .contiguous()
+    got = {"dq": fa.flash_bwd_dq(q, k, v, do, lse, corr, *args)}
+    got["dk"], got["dv"] = fa.flash_bwd_dkv(q, k, v, do, lse, corr, *args)
+    plain = {"dq": fa.flash_bwd_dq_plain(q, k, v, do, lse, corr, *args)}
+    plain["dk"], plain["dv"] = fa.flash_bwd_dkv_plain(q, k, v, do, lse,
+                                                      corr, *args)
+    qd, kd, vd, dod = (x.double() for x in (q, k, v, do))
+    t = q.shape[1]
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qd, kd) * args[1] -
+                  lse.double()[..., None])
+    p = p * torch.ones(t, t, dtype=torch.bool, device=device).tril()
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dod, vd) +
+              corr.double()[..., None]) * args[1]
+    exact = {"dq": torch.einsum("bhqk,bkhd->bqhd", ds, kd),
+             "dk": torch.einsum("bhqk,bqhd->bkhd", ds, qd),
+             "dv": torch.einsum("bhqk,bqhd->bkhd", p, dod)}
+    del p, ds
+    out = {}
+    for key, e in exact.items():
+        kern, pl = got[key].double() - e, plain[key].double() - e
+        out[key] = {"kernel_max_err": float(kern.abs().max()),
+                    "plain_max_err": float(pl.abs().max()),
+                    "kernel_norm_err": torch_norm(kern) / torch_norm(e),
+                    "plain_norm_err": torch_norm(pl) / torch_norm(e)}
+        if not out[key]["kernel_norm_err"] <= \
+                1.1 * out[key]["plain_norm_err"]:
+            raise AssertionError(f"{name}: {key} is farther from float64 "
+                                 f"than the plain version: {out[key]}")
+    # the rows that see one key: q row 0 of every batch and head
+    out["dq"].update(one_key_kernel_max_err=float(
+        (got["dq"][:, 0].double() - exact["dq"][:, 0]).abs().max()),
+        one_key_plain_max_err=float(
+            (plain["dq"][:, 0].double() - exact["dq"][:, 0]).abs().max()))
+    floor = tolerances(case["dtype"])["grad"][1]
+    if not out["dq"]["one_key_kernel_max_err"] <= floor:
+        raise AssertionError(f"{name}: dq in rows that see one key is "
+                             f"{out['dq']} from float64, floor {floor}")
+    return out
 
 
 def autograd_check(device):
@@ -646,20 +784,30 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bounds(b, t, h, d, causal, dtype_name, q_off=0.0, k_off=0.0):
+def bounds(b, t, h, d, causal, dtype_name, q_off=0.0, k_off=0.0, dv=None):
     """Least time (ms) per kernel: each input read once and each output
     written once at the memory rate, against the products this run's data
-    needs (only the causally visible q-k pairs, at these offsets) at the
-    tensor-core rate. The exp and elementwise work is not counted."""
+    needs (only the causally visible q-k pairs, at these offsets; each
+    product at its own width, q.k^T and dS-by-q/k ones at d, those with v
+    or do at dv) at the tensor-core rate. The exp and elementwise work is
+    not counted."""
     from horovod_tpu_torch.profiler.flops import attention_pairs
-    esize = 2 if dtype_name == "bfloat16" else 4
+    dv = d if dv is None else dv
+    esize = 4 if dtype_name == "float32" else 2
     pairs = b * h * attention_pairs(t, t, causal, q_off, k_off)
-    x = b * t * h * d * esize          # one [B, T, H, D] tensor
+    x = b * t * h * d * esize          # one [B, T, H, d] tensor
+    xv = b * t * h * dv * esize        # one [B, T, H, dv] tensor
     row = b * h * t * 4                # one [B, H, T] fp32 tensor
     work = {  # name -> (bytes, flops)
-        "flash_fwd": (3 * x + x + row, 2 * 2 * pairs * d),
-        "flash_bwd_dq": (4 * x + 2 * row + x, 3 * 2 * pairs * d),
-        "flash_bwd_dkv": (4 * x + 2 * row + 2 * x, 4 * 2 * pairs * d),
+        # q, k, v in; o, lse out: q.k^T and p.v
+        "flash_fwd": (2 * x + xv + xv + row, 2 * pairs * (d + dv)),
+        # q, k, v, do, lse, corr in; dq out: q.k^T, do.v^T, ds.k
+        "flash_bwd_dq": (2 * x + 2 * xv + 2 * row + x,
+                         2 * pairs * (2 * d + dv)),
+        # q, k, v, do, lse, corr in; dk, dv out: q.k^T, do.v^T, ds^T.q,
+        # p^T.do
+        "flash_bwd_dkv": (2 * x + 2 * xv + 2 * row + x + xv,
+                          2 * pairs * (2 * d + 2 * dv)),
     }
     out = {}
     for name, (nbytes, flops) in work.items():
@@ -674,28 +822,30 @@ def bounds(b, t, h, d, causal, dtype_name, q_off=0.0, k_off=0.0):
 TURNS = 5  # every reported time is the median of this many turns
 
 
-def timing(device, shape=MAIN, causal=True, q_off=0.0, k_off=0.0):
+def timing(device, shape=MAIN, causal=True, q_off=0.0, k_off=0.0,
+           dtype_name="bfloat16"):
     """Each kernel, its plain version and the SDPA yardstick at ``shape``
-    (bf16), with q and k at global positions ``q_off`` and ``k_off``: a
-    ring shard's diagonal block (equal offsets, the same function as
-    offset 0, which SDPA computes causally) or a block whose every pair is
-    visible (SDPA without a mask). Kernel and plain version alternate turn
-    by turn; each time is the median of TURNS turns (a kernel turn is 50
-    launches)."""
+    (v and do ``shape["dv"]`` wide when given, else d), with q and k at
+    global positions ``q_off`` and ``k_off``: a ring shard's diagonal
+    block (equal offsets, the same function as offset 0, which SDPA
+    computes causally) or a block whose every pair is visible (SDPA
+    without a mask). Kernel and plain version alternate turn by turn; each
+    time is the median of TURNS turns (a kernel turn is 50 launches)."""
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.profiler.flops import attention_pairs
     t = shape["t"]
+    d, dv = shape["d"], shape.get("dv", shape["d"])
     every_pair = attention_pairs(t, t, causal, q_off, k_off) == t * t
     if causal and q_off != k_off and not every_pair:
         raise ValueError("SDPA has no mask for a block at these offsets")
     sdpa_causal = causal and not every_pair
     case = dict(name="timing", causal=causal, b=shape["b"], tq=shape["t"],
-                tk=shape["t"], h=shape["h"], d=shape["d"], bq=512, bk=512,
-                dtype=torch.bfloat16)
+                tk=shape["t"], h=shape["h"], d=d, dv=dv, bq=512, bk=512,
+                dtype=getattr(torch, dtype_name))
     q, k, v, do, dlse = kernel_inputs(case, device)
-    args = (causal, shape["d"] ** -0.5, q_off, k_off, 512, 512)
+    args = (causal, d ** -0.5, q_off, k_off, 512, 512)
     o, lse = fa.flash_fwd(q, k, v, *args)
     corr = (dlse - (do.float() * o.float()).sum(-1).transpose(1, 2)) \
         .contiguous()
@@ -735,14 +885,50 @@ def timing(device, shape=MAIN, causal=True, q_off=0.0, k_off=0.0):
     res["flash_fwd"].update(library_ms=sdpa_fwd, library_ms_joint=None)
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         res[name].update(library_ms=None, library_ms_joint=sdpa_bwd)
-    bnd = bounds(shape["b"], shape["t"], shape["h"], shape["d"], causal,
-                 "bfloat16", q_off, k_off)
+    bnd = bounds(shape["b"], shape["t"], shape["h"], d, causal, dtype_name,
+                 q_off, k_off, dv)
     for name, (ms, by, nbytes, flops) in bnd.items():
         res[name].update(bound_ms=ms, bound_by=by, bytes=nbytes,
                          flops=flops, share_of_bound=ms / res[name]["ms"])
     return res, {"sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
                  "sdpa_fwd_ms_turns": fwd_t, "sdpa_bwd_ms_turns": bwd_t,
                  "busy_wait_cycles_per_ms": _SLEEP_CYCLES_PER_MS[0]}
+
+
+# the kernels' other dtypes and widths at the GPT-2 small token count
+# (B=8, T=1024, causal, H*d about 768): name -> (shape, dtype). d 60 runs
+# through the wrapper's zero-padded copy (16-bit rows of 120 bytes, which
+# the TMA cannot address); the d 64 row beside it reads in place.
+WIDTH_TIMINGS = {
+    "f16_d64": (dict(b=8, t=1024, h=12, d=64), "float16"),
+    "bf16_d96": (dict(b=8, t=1024, h=8, d=96), "bfloat16"),
+    "bf16_d256": (dict(b=8, t=1024, h=3, d=256), "bfloat16"),
+    "bf16_mla_d192_dv128": (dict(b=8, t=1024, h=4, d=192, dv=128),
+                            "bfloat16"),
+    "bf16_d60_padded_copy": (dict(b=8, t=1024, h=12, d=60), "bfloat16"),
+}
+
+
+def width_timings(device):
+    """WIDTH_TIMINGS rows, each with every kernel's resources at the
+    instantiation it runs at."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    lines = []
+    for key, (shape, dtype_name) in WIDTH_TIMINGS.items():
+        d, dv = shape["d"], shape.get("dv", shape["d"])
+        w = fa.kernel_width(d, dv)
+        dt = getattr(torch, dtype_name)
+        times, sdpa = timing(device, shape, causal=True,
+                             dtype_name=dtype_name)
+        res = {name: fa.kernel_info(name, dt, w) for name in NAMES}
+        lines.append({"phase": "timing", "row": key, "shape": shape,
+                      "dtype": dtype_name, "causal": True,
+                      "instantiated_width": w,
+                      "reads_in_place": fa.reads_in_place(dt, d, dv),
+                      "kernels": times, "resources": res, **sdpa})
+        torch.cuda.empty_cache()
+    return lines
 
 
 CROSSOVER_T = (256, 512, 1024, 2048)
@@ -934,6 +1120,253 @@ def train(device, profile_dir=None, profile=False):
         "mfu": mfu_entry(est, tokens, tokens / (mean_ms / 1e3)),
         "peak_mem_bytes": peak, "launches": counts,
         "backend": "nccl", "world_size": 1}
+
+
+# GPT-2 small at the kernels' other dtypes and widths: (compute dtype,
+# heads, static loss scale); hidden 768 gives d 64, 96 and 256. fp16 runs
+# as fp16 training does, with its loss scaled: unscaled, the backward's
+# activation gradients (about 1e-6 to 1e-8 at 8,192 tokens) fall below
+# fp16's smallest normal, 6.1e-5, where it keeps few bits (``widths_grads``)
+WIDTH_RUNS = (("float16", 12, 2.0 ** 13), ("bfloat16", 8, 1.0),
+              ("bfloat16", 3, 1.0))
+# the flash run's loss against the dense route's, relative, at step 1 and
+# at steps 2-5, by dtype: the two round p (and ds) to the 16-bit type at
+# other places and sum in other orders, and AdamW steps carry the
+# difference on. On an H100 (PERF.md §6) step 1 reads at most 1.8e-5 (bf16
+# d 256) and steps 2-5 1.0e-4 (bf16) and 4.4e-6 (fp16, scaled): the limits
+# are 5 to 10 times those
+WIDTHS_LOSS_RTOL = {"float16": (1e-4, 5e-5), "bfloat16": (1e-4, 5e-4)}
+# step 1's gradients on the flash route against fp32, over those on the
+# dense route: (the largest, the median) over leaves may be at most these
+# many times the dense route's. The flash route rounds ds to the 16-bit
+# type before dS.K and dS^T.Q, as the reference's kernels do, where the
+# dense route's autograd keeps ds in fp32, so its query and key leaves sit
+# about twice as far from fp32; a wrong panel of dq, dk or dv would put its
+# leaves' error near 1, tens of times the dense route's
+WIDTHS_GRAD_RATIO = (5.0, 1.5)
+
+
+def widths_model(device, dtype, heads):
+    """The widths phase's GPT-2 small at ``heads`` heads computing in
+    ``dtype``, its fp32 weights from seed 0, and its batch (seed 0)."""
+    import torch
+    from horovod_tpu_torch.models.gpt import GptDecoder
+    model = GptDecoder(layers=12, hidden=768, heads=heads, mlp_dim=3072,
+                       dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, 50257, (MAIN["b"], MAIN["t"]),
+                           generator=torch.Generator().manual_seed(0))
+    return model.to(device), tokens
+
+
+def widths_route(flash: bool):
+    """The flash route from 1024 keys (the default crossover), or the
+    dense route: a crossover above the sequence."""
+    os.environ["HOROVOD_FLASH_MIN_SEQ"] = "1024" if flash else "2048"
+
+
+def widths_run(device, dtype_name, heads, flash, loss_scale=1.0):
+    """GPT-2 small (the train phase's model, batch, optimizer and wire from
+    seed 0) at ``heads`` heads in ``dtype_name``, 5 steps on the flash
+    kernels or on the dense route, the loss scaled by ``loss_scale`` and
+    AdamW's eps with it (the same updates); (unscaled losses, step ms,
+    launches, FLOPs estimate or None)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.gpt import lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import dp
+
+    def scaled_loss(model, batch):
+        loss, aux = lm_loss(model, batch)
+        return loss * loss_scale, aux
+
+    widths_route(flash)
+    hvd.init()
+    try:
+        model, tokens = widths_model(hvd.device(), getattr(torch, dtype_name),
+                                     heads)
+        batch = dp.shard_batch(tokens).to(hvd.device())
+        est = step_flops(lm_loss, model, batch) if flash else None
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                betas=(0.9, 0.999), eps=1e-8 * loss_scale,
+                                weight_decay=1e-4)
+        step = dp.make_train_step(model, scaled_loss, opt,
+                                  compression=hvd.Compression.bf16)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        losses, step_ms = [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            out = step(batch)
+            losses.append(out.loss.item() / loss_scale)  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = fa.launch_counts()
+    finally:
+        hvd.shutdown()
+        os.environ.pop("HOROVOD_FLASH_MIN_SEQ", None)
+    return losses, step_ms, counts, est
+
+
+def widths_grads(device, dtype_name, heads, loss_scale=1.0):
+    """Step 1 of a widths run without the optimizer: the loss and the
+    gradients of the same weights on the flash kernels and on the dense
+    route in ``dtype_name`` (the loss scaled by ``loss_scale``, the
+    gradients unscaled), each against the dense route in fp32. Per route:
+    the loss's relative error, and over the leaves the largest and the
+    median normwise error ||g - g32|| / ||g32|| and the share of entries
+    zero where g32's are not. Of the flash route's first backward (the last
+    layer): the share of do, and of the visible pairs' ds = p (dp + corr)
+    scale, below the dtype's smallest normal and rounding to zero when cast
+    to it, as the kernels cast ds for the dS.K and dS^T.Q products."""
+    import torch
+    from horovod_tpu_torch.models.gpt import lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+    dt = getattr(torch, dtype_name)
+
+    def grads(dtype, flash):
+        model, tokens = widths_model(device, dtype, heads)
+        widths_route(flash)
+        try:
+            loss, _ = lm_loss(model, tokens.to(device))
+            (loss * loss_scale).backward()
+        finally:
+            os.environ.pop("HOROVOD_FLASH_MIN_SEQ", None)
+        return float(loss.detach()), {n: p.grad / loss_scale
+                                      for n, p in model.named_parameters()}
+
+    loss32, g32 = grads(torch.float32, False)
+    # leaves whose gradient is zero in exact arithmetic (the key bias, which
+    # shifts a row's scores by one constant) hold only fp32's noise: no
+    # relative error is taken of them
+    norms = {n: torch_norm(g) for n, g in g32.items()}
+    floor = 1e-4 * statistics.median(norms.values())
+    null = sorted(n for n, x in norms.items() if x < floor)
+    seen, backward = [], fa._Flash.backward
+
+    def first_backward(ctx, do, dlse):  # keeps the first backward's inputs
+        if not seen:
+            seen.append((*ctx.saved_tensors, do, dlse, ctx.args[1]))
+        return backward(ctx, do, dlse)
+
+    fa._Flash.backward = staticmethod(first_backward)
+    try:
+        routes = {"flash": grads(dt, True)}
+    finally:
+        fa._Flash.backward = staticmethod(backward)
+    routes["dense"] = grads(dt, False)
+    out = {"loss_fp32": loss32, "null_leaves": null}
+    for route, (loss, g) in routes.items():
+        errs, zero, live = {}, 0, 0
+        for n, ref in g32.items():
+            if n not in null:
+                errs[n] = torch_norm(g[n].double() - ref.double()) / norms[n]
+            nz = ref != 0
+            zero += int(((g[n] == 0) & nz).sum())
+            live += int(nz.sum())
+        worst = max(errs, key=errs.get)
+        out[route] = {"loss": loss, "loss_rel_err": abs(loss - loss32) /
+                      abs(loss32), "max_leaf_err": errs[worst],
+                      "worst_leaf": worst,
+                      "median_leaf_err": statistics.median(errs.values()),
+                      "zero_share": zero / max(live, 1), "leaf_err": errs}
+    del routes, g32
+    q, k, v, o, lse, do, dlse, scale = (
+        x.detach() if isinstance(x, torch.Tensor) else x for x in seen[0])
+    do = do.to(dt)
+    corr = dlse.float() - (do.float() * o.float()).sum(-1).transpose(1, 2)
+    t = q.shape[1]
+    vis = torch.ones(t, t, dtype=torch.bool, device=device).tril()
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) *
+                  scale - lse[..., None]) * vis
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float()) +
+              corr[..., None]) * scale
+    del p
+    n_vis = float(vis.sum()) * q.shape[0] * q.shape[2]
+    tiny = torch.finfo(dt).tiny
+    out["last_layer"] = {
+        "do_below_normal_share": float((do.abs() < tiny).float().mean()),
+        "do_zero_share": float((do == 0).float().mean()),
+        "ds_below_normal_share": float(((ds.abs() < tiny) & vis).sum()) /
+        n_vis,
+        "ds_zero_share": float(((ds.to(dt) == 0) & vis).sum()) / n_vis,
+        "ds_abs_median": float(ds[:, :, vis].abs().median())}
+    return out
+
+
+def widths_phase(device, card):
+    """The widths phase: each WIDTH_RUNS configuration's step-1 gradients on
+    both routes against fp32 (``widths_grads``; fp16 also unscaled, which
+    shows why it is scaled), then 5 steps on the flash kernels and 5 on the
+    dense route from the same weights: the losses finite and within
+    WIDTHS_LOSS_RTOL step by step, the gradients within WIDTHS_GRAD_RATIO,
+    12 launches of each kernel a step on the flash route and none on the
+    dense one. Returns (the flash runs' launches, the line)."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    counts = {name: 0 for name in NAMES}
+    runs = []
+    tokens = MAIN["b"] * MAIN["t"]
+    for dtype_name, heads, scale in WIDTH_RUNS:
+        key = f"{dtype_name}_h{heads}_d{768 // heads}"
+        grads = widths_grads(device, dtype_name, heads, scale)
+        unscaled = widths_grads(device, dtype_name, heads) \
+            if scale != 1.0 else None
+        for stat, ratio in zip(("max_leaf_err", "median_leaf_err"),
+                               WIDTHS_GRAD_RATIO):
+            if not grads["flash"][stat] <= ratio * grads["dense"][stat]:
+                raise AssertionError(
+                    f"widths/{key}: step 1's gradients on the flash route "
+                    f"{grads['flash']} against the dense route's "
+                    f"{grads['dense']}")
+        for g in (grads, unscaled or {}):
+            for route in ("flash", "dense"):
+                if route in g:
+                    g[route].pop("leaf_err")
+        losses, step_ms, launches, est = widths_run(device, dtype_name,
+                                                    heads, True, scale)
+        dense, dense_ms, dense_launches, _ = widths_run(
+            device, dtype_name, heads, False, scale)
+        torch.cuda.empty_cache()
+        want = 12 * STEPS
+        if launches != {k: want for k in launches}:
+            raise AssertionError(f"widths/{key}: launches {launches}, want "
+                                 f"{want} each")
+        if any(dense_launches.values()):
+            raise AssertionError(f"widths/{key}: the dense route launched "
+                                 f"{dense_launches}")
+        if not all(math.isfinite(x) for x in losses + dense):
+            raise AssertionError(f"widths/{key}: non-finite loss {losses} "
+                                 f"{dense}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, dense)]
+        first, later = WIDTHS_LOSS_RTOL[dtype_name]
+        if rel[0] > first or max(rel[1:]) > later:
+            raise AssertionError(f"widths/{key}: flash losses {losses} "
+                                 f"against dense {dense} (rel {rel}, limits "
+                                 f"{first} at step 1, {later} after)")
+        for name in NAMES:
+            counts[name] += launches[name]
+        steady = sum(step_ms[1:]) / len(step_ms[1:])
+        runs.append({
+            "run": key, "dtype": dtype_name, "heads": heads,
+            "head_dim": 768 // heads, "loss_scale": scale,
+            "instantiated_width": fa.kernel_width(768 // heads,
+                                                  768 // heads),
+            "losses": losses, "dense_losses": dense, "rel_err": rel,
+            "loss_rtol": [first, later], "step1_grads": grads,
+            "step1_grads_unscaled": unscaled,
+            "step_ms": step_ms, "steady_step_ms": steady,
+            "dense_step_ms": dense_ms,
+            "tokens_per_s": tokens / (steady / 1e3),
+            "mfu": mfu_entry(est, tokens, tokens / (steady / 1e3)),
+            "launches": launches})
+    return counts, {"phase": "widths", "nvidia_smi": card,
+                    "model": "GptDecoder(layers=12, hidden=768)",
+                    "batch": MAIN["b"], "seq": MAIN["t"], "steps": STEPS,
+                    "grad_ratio": WIDTHS_GRAD_RATIO, "runs": runs,
+                    "launches": counts,
+                    "seconds": time.perf_counter() - t_phase}
 
 
 # ---------------------------------------------------------------------------
@@ -5017,6 +5450,9 @@ def main() -> int:
                 max_err[k] = max(max_err.get(k, 0.0), e)
     emit({"phase": "kernels", "case": "autograd_f32",
           "max_abs_err": autograd_check(device)})
+    for name in FLOAT64_CASES:
+        emit({"phase": "kernels", "case": f"{name}_vs_float64",
+              "errors": float64_noise(device, name)})
 
     emit({"phase": "parity", "max_abs_err": parity(device)})
 
@@ -5036,6 +5472,9 @@ def main() -> int:
         emit({"phase": "timing", "shape": RING_SHARD, "dtype": "bfloat16",
               "causal": True, "q_offset": q_off, "k_offset": k_off,
               "kernels": ring_times[key], **ring_sdpa})
+    width_lines = width_timings(device)
+    for line in width_lines:
+        emit(line)
     emit(crossover(device))
 
     counts = {}
@@ -5044,6 +5483,8 @@ def main() -> int:
     emit(train_line)
     if prof is not None:
         emit(prof)
+    counts["widths"], widths_line = widths_phase(device, card)
+    emit(widths_line)
 
     emit(collectives_check(device))
     counts["frontend"], front_line = frontend(device, card, gpt_flops)
@@ -5098,6 +5539,9 @@ def main() -> int:
             **{key: {k: tr[name][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_ms_joint")} for key, tr in ring_times.items()},
+            "widths": {line["row"]: {k: line["kernels"][name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_ms_joint")} for line in width_lines},
             "registers": res["registers"], "smem_bytes": res["smem_bytes"],
             "blocks_per_sm": res["blocks_per_sm"]})
     emit({"kernels": kernels})

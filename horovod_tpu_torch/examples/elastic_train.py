@@ -52,7 +52,8 @@ from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.parallel import dp, zero
 from horovod_tpu_torch.runner.elastic import worker
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 def parser() -> argparse.ArgumentParser:

@@ -9,10 +9,13 @@ bound to the port's own surface (stdlib ``ast``):
 - env discipline, typo detection and the README env table (HVL004-HVL006)
   against ``common/env.py``'s REGISTRY;
 - KV keys through ``common/kv_keys.py`` and driver writes claiming the
-  control epoch (HVL007-HVL008).
+  control epoch (HVL007-HVL008);
+- the kernel ABI (HVL104): ``ops/csrc``'s ``extern "C"`` entry points
+  against ``ops/_build.py``'s ctypes signatures, and the dispatch's
+  (dtype, head_dim) cases against ``ops/flash_attention.py``'s.
 
-The reference's C++ rules (HVL101-HVL104) read ``engine/src``, which the
-port does not have. Run ``python -m horovod_tpu_torch.lint``;
+The reference's HVL101-HVL103 read the engine's C++ (condition variables,
+locks, atomics), which the port does not have. Run ``python -m horovod_tpu_torch.lint``;
 ``tests/test_torch_lint.py`` keeps the port at zero findings.
 """
 

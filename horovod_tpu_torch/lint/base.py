@@ -1,9 +1,10 @@
 """Shared lint infrastructure: findings, rule metadata, suppression
 comments, and file discovery.
 
-Counterpart of ``horovod_tpu/lint/base.py``, limited to the Python rules
-(HVL001-HVL008): the port has no C++ engine for the reference's
-HVL101-HVL104 to read.
+Counterpart of ``horovod_tpu/lint/base.py``, with the Python rules
+(HVL001-HVL008) and HVL104 over the port's kernel ABI: the port has no C++
+engine, and its CUDA sources hold no condition variable, lock or host
+atomic for the reference's HVL101-HVL103 to read.
 
 Suppression syntax:
 
@@ -44,6 +45,9 @@ RULES: Dict[str, str] = {
               "registry (common/kv_keys.py)",
     "HVL008": "driver-originated KV write missing an epoch claim "
               "(invisible to split-brain fencing and conformance replay)",
+    "HVL104": "kernel ABI drift: an hvd_* C export vs ops/_build.py "
+              "SIGNATURES (binding, arity), or the dispatch's (dtype, "
+              "head_dim) cases vs _KERNEL_DTYPES/_KERNEL_HEAD_DIMS",
 }
 
 _DISABLE_RE = re.compile(

@@ -9,9 +9,12 @@ Usage::
     python -m horovod_tpu_torch.lint --list-rules
 
 Counterpart of ``horovod_tpu/lint/cli.py`` (``hvd-lint``) with the Python
-rules HVL001-HVL008. The default scan roots are ``horovod_tpu_torch/`` and
-``chip_smoke.py``; directories named ``*lint_fixtures`` are skipped, and a
-full run also checks README.md's env table (HVL006).
+rules HVL001-HVL008 and HVL104 over the kernel ABI. The default scan roots
+are ``horovod_tpu_torch/`` and ``chip_smoke.py``; directories named
+``*lint_fixtures`` are skipped, and a full run also checks README.md's env
+table (HVL006) and ``horovod_tpu_torch/ops``'s kernel ABI (HVL104). Given
+paths, HVL104 reads each directory among them that holds a ``_build.py``
+and a ``csrc/``.
 
 Exit status: 0 clean, 1 findings, 2 usage error.
 ``tests/test_torch_lint.py`` runs the full suite on the port and asserts
@@ -26,6 +29,7 @@ import sys
 from pathlib import Path
 from typing import List, Optional
 
+from horovod_tpu_torch.lint.abi_rules import check_kernel_abi
 from horovod_tpu_torch.lint.base import (RULES, Finding, Reporter,
                                          iter_source_files)
 from horovod_tpu_torch.lint.py_collectives import check_python_collectives
@@ -36,6 +40,7 @@ from horovod_tpu_torch.lint.py_kv import (check_python_kv_epochs,
 
 # the scan roots relative to the repo root
 PY_ROOTS = ("horovod_tpu_torch", "chip_smoke.py")
+OPS_DIR = "horovod_tpu_torch/ops"  # the kernel ABI's two sides (HVL104)
 EXCLUDE_DIRS = ("*lint_fixtures",)
 ENV_DOC = "README.md"
 
@@ -73,6 +78,11 @@ def run_lint(repo_root: Optional[Path] = None,
             check_python_kv_epochs(rep, f)
     if not paths and on("HVL006"):
         check_doc_sync(rep, root / ENV_DOC)
+    if on("HVL104"):
+        abi_dirs = [root / OPS_DIR] if not paths else \
+            [Path(p) for p in paths if (Path(p) / "_build.py").is_file()]
+        for ops_dir in abi_dirs:
+            check_kernel_abi(rep, ops_dir)
 
     if rules is not None:
         rep.findings = [f for f in rep.findings if f.rule in rules]
@@ -90,8 +100,8 @@ def run_lint(repo_root: Optional[Path] = None,
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m horovod_tpu_torch.lint",
-        description="static collective-safety, env and KV-key analysis "
-                    "of horovod_tpu_torch")
+        description="static collective-safety, env, KV-key and kernel-ABI "
+                    "analysis of horovod_tpu_torch")
     p.add_argument("paths", nargs="*", type=Path,
                    help="files/directories to scan (default: "
                         f"{', '.join(PY_ROOTS)} + the {ENV_DOC} env table)")

@@ -33,13 +33,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (library, argtypes); every pointer and the stream are
 # c_void_p, every C function returns its cudaError_t as an int.
 SIGNATURES = {
-    "hvd_flash_fwd": ("flash_fwd", [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _F, _F, _F, _I, _I, _P]),
-    "hvd_flash_bwd_dq": ("flash_bwd", [_I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _I, _F, _F, _F, _P]),
-    "hvd_flash_bwd_dkv": ("flash_bwd", [_I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                        _P, _I, _I, _I, _I, _I, _F, _F, _F,
-                                        _P]),
+    # (dtype, head_dim, d, dv, tensors..., B, H, Tq, Tk, causal, scale,
+    #  q_off, k_off[, block_q, block_k], stream)
+    "hvd_flash_fwd": ("flash_fwd", [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _F, _F, _F, _I, _I, _P]),
+    "hvd_flash_bwd_dq": ("flash_bwd", [_I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                       _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                                       _F, _P]),
+    "hvd_flash_bwd_dkv": ("flash_bwd", [_I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                        _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                        _F, _F, _P]),
     # kernel attributes: (dtype, head_dim[, which], int[4] out)
     "hvd_flash_fwd_info": ("flash_fwd", [_I, _I, _P]),
     "hvd_flash_bwd_info": ("flash_bwd", [_I, _I, _I, _P]),

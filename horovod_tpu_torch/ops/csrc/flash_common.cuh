@@ -1,19 +1,27 @@
 // Shared pieces of the flash-attention kernels for Hopper (sm_90a).
 //
-// Layout: q/k/v/o and their gradients are [B, T, H, D] contiguous, read in
-// place (no [B*H, T, D] transpose); lse and corr are [B, H, Tq] fp32. One
-// block of 4 warps owns a 64-row tile of its own sequence (q rows for the
+// Layout: q/k/v/o and their gradients are [B, T, H, width] contiguous,
+// read in place (no [B*H, T, D] transpose); lse and corr are [B, H, Tq]
+// fp32. One block of 4 warps owns a tile of its own sequence (q rows for the
 // forward and dq kernels, k rows for dk/dv) and streams the other sequence
-// through shared memory in tiles of BN rows. Each warp owns 16 of the 64
-// rows, so the softmax bookkeeping of a row never leaves its warp.
+// through shared memory in tiles of BN rows. Each warp owns a quarter of
+// the tile's rows, so the softmax bookkeeping of a row never leaves its
+// warp.
+//
+// Widths: a kernel is instantiated at a head width D in {32, 64, 128, 192,
+// 256} and takes q/k of any width d <= D and v/do/o of any width dv <= D:
+// the columns from d (or dv) up to D read as zeros, which change neither
+// q.k^T nor the log-sum-exp, and are never written. The wrapper picks the
+// smallest D >= max(d, dv).
 //
 // Types: fp32 stays full fp32 (scalar FMA, no TF32), which is what the
 // reference's fp32 tolerances need; the fp32 kernels use the helpers below.
-// bf16 takes the tensor cores: all three bf16 kernels run on TMA and wgmma
-// (flash_sm90.cuh).
+// bf16 and fp16 take the tensor cores: all their kernels run on TMA and
+// wgmma (flash_sm90.cuh), products in the input type with fp32 sums.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -21,44 +29,51 @@
 namespace hvdflash {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float NEG_INF = -1e30f;  // the reference's NEG_INF, not -inf
-constexpr int BM = 64;             // rows of the block's own tile
+constexpr int BM = 64;             // rows of the block's own tile (wgmma M)
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int WROWS = 16;          // rows per warp
 
-// The fp32 kernels: rows of a streamed tile, and the element padding of a
-// shared-memory row (staggers banks for the scalar loops).
+// The fp32 kernels: rows of a streamed tile, the element padding of a
+// shared-memory row (staggers banks for the scalar loops), and rows of the
+// block's own tile: 64, or 32 above D = 128, where a 64-row tile and its
+// fp32 accumulator would not fit a block's 227 KB of shared memory.
 constexpr int F32_BN = 32;
 constexpr int F32_PAD = 1;
+__host__ __device__ constexpr int f32_bm(int d) { return d > 128 ? 32 : 64; }
 
 __host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
 
 // Copy rows [row0, row0 + ROWS) of one (batch, head) slice into shared
-// memory (row stride LD); rows at or past t_len are zero. `src` points at
-// element (b, 0, h, 0); `rs` is the row stride H * D.
+// memory (row stride LD, D columns); rows at or past t_len and columns at
+// or past `width` are zero. `src` points at element (b, 0, h, 0); `rs` is
+// the row stride H * width.
 template <int ROWS, int D, int LD>
 __device__ __forceinline__ void load_rows(float* dst,
                                           const float* __restrict__ src,
-                                          int row0, int t_len, size_t rs) {
+                                          int row0, int t_len, size_t rs,
+                                          int width) {
   for (int i = threadIdx.x; i < ROWS * D; i += THREADS) {
     const int r = i / D, c = i % D;
     const int t = row0 + r;
-    dst[r * LD + c] = t < t_len ? src[(size_t)t * rs + c] : 0.f;
+    dst[r * LD + c] =
+        t < t_len && c < width ? src[(size_t)t * rs + c] : 0.f;
   }
 }
 
 // One block-wide store of a fp32 shared-memory tile (row stride LD) into
-// rows [row0, row0 + BM) of a [B, T, H, D] slice, skipping rows >= t_len;
-// each row is divided by max(row_div[r], 1e-30) when row_div is given.
-template <int D, int LD>
+// rows [row0, row0 + ROWS) and columns [0, width) of a [B, T, H, width]
+// slice, skipping rows >= t_len; each row is divided by
+// max(row_div[r], 1e-30) when row_div is given.
+template <int ROWS, int LD>
 __device__ __forceinline__ void store_rows(float* __restrict__ dst,
                                            const float* src, int row0,
-                                           int t_len, size_t rs,
+                                           int t_len, size_t rs, int width,
                                            const float* row_div) {
-  for (int i = threadIdx.x; i < BM * D; i += THREADS) {
-    const int r = i / D, c = i % D;
+  for (int i = threadIdx.x; i < ROWS * width; i += THREADS) {
+    const int r = i / width, c = i % width;
     const int t = row0 + r;
     if (t >= t_len) continue;
     float x = src[r * LD + c];
@@ -68,19 +83,20 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
 }
 
 // ---- warp-level tile products on shared memory ---------------------------
-// warp_mm_abT: C[16 x N] = A[16 x K] . B[N x K]^T   (C fp32, overwritten)
-// warp_mm_ab_acc: C[16 x N] += A[16 x K] . B[K x N] (C fp32, accumulated)
-// A and B are row-major element tiles; LDx are row strides in elements.
+// warp_mm_abT: C[WR x N] = A[WR x K] . B[N x K]^T   (C fp32, overwritten)
+// warp_mm_ab_acc: C[WR x N] += A[WR x K] . B[K x N] (C fp32, accumulated)
+// A and B are row-major element tiles; LDx are row strides in elements; WR
+// is the warp's rows.
 
-template <int N, int K, int LDA, int LDB, int LDC>
+template <int N, int K, int LDA, int LDB, int LDC, int WR>
 __device__ __forceinline__ void warp_mm_abT(float* C, const float* A,
                                             const float* B) {
   static_assert(N % 32 == 0, "N must be a multiple of 32");
   constexpr int NC = N / 32;
   const int lane = threadIdx.x & 31;
-  float acc[WROWS][NC];
+  float acc[WR][NC];
 #pragma unroll
-  for (int r = 0; r < WROWS; ++r)
+  for (int r = 0; r < WR; ++r)
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[r][j] = 0.f;
 #pragma unroll 4
@@ -89,27 +105,27 @@ __device__ __forceinline__ void warp_mm_abT(float* C, const float* A,
 #pragma unroll
     for (int j = 0; j < NC; ++j) b[j] = B[(lane + 32 * j) * LDB + kk];
 #pragma unroll
-    for (int r = 0; r < WROWS; ++r) {
+    for (int r = 0; r < WR; ++r) {
       const float a = A[r * LDA + kk];
 #pragma unroll
       for (int j = 0; j < NC; ++j) acc[r][j] = fmaf(a, b[j], acc[r][j]);
     }
   }
 #pragma unroll
-  for (int r = 0; r < WROWS; ++r)
+  for (int r = 0; r < WR; ++r)
 #pragma unroll
     for (int j = 0; j < NC; ++j) C[r * LDC + lane + 32 * j] = acc[r][j];
 }
 
-template <int N, int K, int LDA, int LDB, int LDC>
+template <int N, int K, int LDA, int LDB, int LDC, int WR>
 __device__ __forceinline__ void warp_mm_ab_acc(float* C, const float* A,
                                                const float* B) {
   static_assert(N % 32 == 0, "N must be a multiple of 32");
   constexpr int NC = N / 32;
   const int lane = threadIdx.x & 31;
-  float acc[WROWS][NC];
+  float acc[WR][NC];
 #pragma unroll
-  for (int r = 0; r < WROWS; ++r)
+  for (int r = 0; r < WR; ++r)
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[r][j] = C[r * LDC + lane + 32 * j];
 #pragma unroll 4
@@ -118,24 +134,37 @@ __device__ __forceinline__ void warp_mm_ab_acc(float* C, const float* A,
 #pragma unroll
     for (int j = 0; j < NC; ++j) b[j] = B[kk * LDB + lane + 32 * j];
 #pragma unroll
-    for (int r = 0; r < WROWS; ++r) {
+    for (int r = 0; r < WR; ++r) {
       const float a = A[r * LDA + kk];
 #pragma unroll
       for (int j = 0; j < NC; ++j) acc[r][j] = fmaf(a, b[j], acc[r][j]);
     }
   }
 #pragma unroll
-  for (int r = 0; r < WROWS; ++r)
+  for (int r = 0; r < WR; ++r)
 #pragma unroll
     for (int j = 0; j < NC; ++j) C[r * LDC + lane + 32 * j] = acc[r][j];
 }
 
-// Number of streamed k tiles a causal q tile [q0, q0 + BM) can see: the
+// Sum or max of a row's partial value over the `lanes` neighbouring lanes
+// that share the row (lanes = 2 or 4, consecutive lane ids).
+__device__ __forceinline__ float row_max(float x, int lanes) {
+  for (int o = 1; o < lanes; o <<= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x, int lanes) {
+  for (int o = 1; o < lanes; o <<= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Number of streamed k tiles a causal q tile [q0, q0 + bm) can see: the
 // reference's _causal_num_k (flash_attention.py:61-67) at this kernel's tile
 // sizes. Tiles entirely in the future are never loaded.
 __device__ __forceinline__ int causal_num_k(float q_off, float k_off, int q0,
-                                            int bn, int num_k) {
-  const float max_q_pos = q_off + (float)(q0 + BM - 1);
+                                            int bn, int num_k, int bm = BM) {
+  const float max_q_pos = q_off + (float)(q0 + bm - 1);
   const float eff = floorf((max_q_pos - k_off) / (float)bn) + 1.f;
   return (int)fminf(fmaxf(eff, 0.f), (float)num_k);
 }
@@ -154,15 +183,15 @@ __device__ __forceinline__ int ref_kv_end(float q_off, float k_off, int row,
   return min(Tk, tiles * block_k);
 }
 
-// k tiles of bn rows a causal forward q tile [q0, q0 + BM) visits: its own
+// k tiles of bn rows a causal forward q tile [q0, q0 + bm) visits: its own
 // causal count, and further, to its last row's ref_kv_end, only when the
 // tile holds a row with no visible key (q_off + q0 < k_off).
 __device__ __forceinline__ int fwd_num_k(float q_off, float k_off, int q0,
                                          int bn, int Tq, int Tk, int block_q,
-                                         int block_k) {
-  int n = causal_num_k(q_off, k_off, q0, bn, (Tk + bn - 1) / bn);
+                                         int block_k, int bm = BM) {
+  int n = causal_num_k(q_off, k_off, q0, bn, (Tk + bn - 1) / bn, bm);
   if (block_k > 0 && q_off + (float)q0 < k_off) {
-    const int last = min(q0 + BM, Tq) - 1;
+    const int last = min(q0 + bm, Tq) - 1;
     const int end = ref_kv_end(q_off, k_off, last, block_q, block_k, Tk);
     n = max(n, (end + bn - 1) / bn);
   }
@@ -200,18 +229,27 @@ __host__ int kernel_info(Kernel kernel, int threads, int smem_bytes,
 
 }  // namespace hvdflash
 
-// Dispatch on (dtype, head_dim): dtype 0 = fp32, 1 = bf16.
-#define HVD_FLASH_DISPATCH(dtype, head_dim, FN, ...)                      \
-  do {                                                                    \
-    if ((dtype) == 0 && (head_dim) == 32) return FN<float, 32>(__VA_ARGS__); \
-    if ((dtype) == 0 && (head_dim) == 64) return FN<float, 64>(__VA_ARGS__); \
-    if ((dtype) == 0 && (head_dim) == 128)                                \
-      return FN<float, 128>(__VA_ARGS__);                                 \
-    if ((dtype) == 1 && (head_dim) == 32)                                 \
-      return FN<hvdflash::bf16, 32>(__VA_ARGS__);                         \
-    if ((dtype) == 1 && (head_dim) == 64)                                 \
-      return FN<hvdflash::bf16, 64>(__VA_ARGS__);                         \
-    if ((dtype) == 1 && (head_dim) == 128)                                \
-      return FN<hvdflash::bf16, 128>(__VA_ARGS__);                        \
-    return (int)cudaErrorInvalidValue;                                    \
+// Dispatch on (dtype, head_dim): dtype 0 = fp32, 1 = bf16, 2 = fp16;
+// head_dim is the instantiated width D (ops/flash_attention.py's
+// _KERNEL_DTYPES and _KERNEL_HEAD_DIMS name the same cases, lint HVL104).
+#define HVD_FLASH_CASE(code, T, W, dtype, head_dim, FN, ...) \
+  if ((dtype) == code && (head_dim) == W) return FN<T, W>(__VA_ARGS__)
+#define HVD_FLASH_DISPATCH(dtype, head_dim, FN, ...)                          \
+  do {                                                                        \
+    HVD_FLASH_CASE(0, float, 32, dtype, head_dim, FN, __VA_ARGS__);           \
+    HVD_FLASH_CASE(0, float, 64, dtype, head_dim, FN, __VA_ARGS__);           \
+    HVD_FLASH_CASE(0, float, 128, dtype, head_dim, FN, __VA_ARGS__);          \
+    HVD_FLASH_CASE(0, float, 192, dtype, head_dim, FN, __VA_ARGS__);          \
+    HVD_FLASH_CASE(0, float, 256, dtype, head_dim, FN, __VA_ARGS__);          \
+    HVD_FLASH_CASE(1, hvdflash::bf16, 32, dtype, head_dim, FN, __VA_ARGS__);  \
+    HVD_FLASH_CASE(1, hvdflash::bf16, 64, dtype, head_dim, FN, __VA_ARGS__);  \
+    HVD_FLASH_CASE(1, hvdflash::bf16, 128, dtype, head_dim, FN, __VA_ARGS__); \
+    HVD_FLASH_CASE(1, hvdflash::bf16, 192, dtype, head_dim, FN, __VA_ARGS__); \
+    HVD_FLASH_CASE(1, hvdflash::bf16, 256, dtype, head_dim, FN, __VA_ARGS__); \
+    HVD_FLASH_CASE(2, hvdflash::f16, 32, dtype, head_dim, FN, __VA_ARGS__);   \
+    HVD_FLASH_CASE(2, hvdflash::f16, 64, dtype, head_dim, FN, __VA_ARGS__);   \
+    HVD_FLASH_CASE(2, hvdflash::f16, 128, dtype, head_dim, FN, __VA_ARGS__);  \
+    HVD_FLASH_CASE(2, hvdflash::f16, 192, dtype, head_dim, FN, __VA_ARGS__);  \
+    HVD_FLASH_CASE(2, hvdflash::f16, 256, dtype, head_dim, FN, __VA_ARGS__);  \
+    return (int)cudaErrorInvalidValue;                                        \
   } while (0)

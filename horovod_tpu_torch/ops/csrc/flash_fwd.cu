@@ -20,20 +20,29 @@
 // input and output, an intensity of ~255 FLOP/byte, just under the card's
 // ~295 bf16 FLOP/byte ridge: memory first, tensor cores a close second.
 //
-// bf16 design (flash_fwd_sm90): one warpgroup per 64 q rows. Q arrives once
-// by TMA; K/V tiles of 64 rows arrive by TMA into a two-stage ring guarded by
-// mbarriers, tile k+1 loading while tile k computes. S = Q.K^T runs on wgmma
+// bf16/fp16 design (flash_fwd_sm90<T, D>): one warpgroup per 64 q rows. Q
+// arrives once by TMA; K/V tiles of BN rows (64, or 32 above D = 128, which
+// keeps the 64 x 256 fp32 accumulator of o, 128 registers a thread, beside
+// S and P) arrive by TMA into a two-stage ring guarded by mbarriers, tile
+// k+1 loading while tile k computes. S = Q.K^T runs on wgmma
 // (both operands from swizzled shared memory) into registers; the online
 // softmax works on the accumulator fragment (quad shuffles for the row max,
 // exp2 with the scale and log2(e) folded into one multiply), O is rescaled
-// in registers, P is cast to bf16 in the accumulator layout and fed back as
-// the register A operand of O += P.V (V read MN-major through the transpose
-// bit). O is divided by l once, in the epilogue. Shared memory: 8 KB of Q and
-// 2 x 16 KB of K/V at D=64, against 71.9 KB for the WMMA version it
-// replaces; four blocks fit an SM, bound by 119 registers a thread.
+// in registers, P is cast to v's type in the accumulator layout and fed back
+// as the register A operand of O += P.V (V read MN-major through the
+// transpose bit; above N = 128 one m64n64 product per 64-column panel). O
+// is divided by l once, in the epilogue, and written in the input type.
+// Shared memory: 8 KB of Q and 2 x 16 KB of K/V at D=64, against 71.9 KB
+// for the WMMA version it replaces; four blocks fit an SM, bound by 104
+// registers a thread. At D=256: 32 KB of Q and 2 x 32 KB of K/V, 184
+// registers, two blocks an SM.
 //
 // fp32 design (flash_fwd_kernel): scalar full-fp32 FMA (the reference's fp32
-// tolerances rule out TF32), two lanes per row, tiles through shared memory.
+// tolerances rule out TF32), two lanes per row (four above D = 128, where
+// the block owns 32 q rows), tiles through shared memory.
+//
+// Widths: q/k are d wide and v/o dv wide, each at most the instantiated D;
+// the columns past them read as zeros (flash_common.cuh).
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -45,82 +54,82 @@ namespace hvdflash {
 
 template <int D>
 struct FwdSmem {
-  using T = float;
+  static constexpr int BMF = f32_bm(D);     // q rows of the block
+  static constexpr int WR = BMF / WARPS;    // rows per warp
+  static constexpr int LPR = 32 / WR;       // lanes per row
   static constexpr int BN = F32_BN;
   static constexpr int LDE = D + F32_PAD;   // q/k/v tiles
-  static constexpr int LDS = BN + 4;            // fp32 scores
+  static constexpr int LDS = BN + 4;        // fp32 scores
   static constexpr int LDP = BN + F32_PAD;  // probabilities
-  static constexpr int LDO = D + 4;             // fp32 accumulator
-  static constexpr int ES = (int)sizeof(T);
+  static constexpr int LDO = D + 4;         // fp32 accumulator
   static constexpr int Q = 0;
-  static constexpr int K = Q + align128(BM * LDE * ES);
-  static constexpr int V = K + align128(BN * LDE * ES);
-  static constexpr int S = V + align128(BN * LDE * ES);
-  static constexpr int P = S + align128(BM * LDS * 4);
-  static constexpr int O = P + align128(BM * LDP * ES);
-  static constexpr int L = O + align128(BM * LDO * 4);
-  static constexpr int BYTES = L + align128(BM * 4);
+  static constexpr int K = Q + align128(BMF * LDE * 4);
+  static constexpr int V = K + align128(BN * LDE * 4);
+  static constexpr int S = V + align128(BN * LDE * 4);
+  static constexpr int P = S + align128(BMF * LDS * 4);
+  static constexpr int O = P + align128(BMF * LDP * 4);
+  static constexpr int L = O + align128(BMF * LDO * 4);
+  static constexpr int BYTES = L + align128(BMF * 4);
 };
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int H, int Tq, int Tk,
-                     int causal, float scale, float q_off, float k_off,
-                     int block_q, int block_k) {
-  using T = float;
+                     float* __restrict__ lse, int H, int Tq, int Tk, int d,
+                     int dv, int causal, float scale, float q_off,
+                     float k_off, int block_q, int block_k) {
   using Sm = FwdSmem<D>;
-  constexpr int BN = Sm::BN;
+  constexpr int BN = Sm::BN, BMF = Sm::BMF, WR = Sm::WR, LPR = Sm::LPR;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + Sm::Q);
-  T* sK = reinterpret_cast<T*>(smem + Sm::K);
-  T* sV = reinterpret_cast<T*>(smem + Sm::V);
+  float* sQ = reinterpret_cast<float*>(smem + Sm::Q);
+  float* sK = reinterpret_cast<float*>(smem + Sm::K);
+  float* sV = reinterpret_cast<float*>(smem + Sm::V);
   float* sS = reinterpret_cast<float*>(smem + Sm::S);
-  T* sP = reinterpret_cast<T*>(smem + Sm::P);
+  float* sP = reinterpret_cast<float*>(smem + Sm::P);
   float* sO = reinterpret_cast<float*>(smem + Sm::O);
   float* sL = reinterpret_cast<float*>(smem + Sm::L);
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BM;
+  const int q0 = blockIdx.x * BMF;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t rs = (size_t)H * D;
-  const T* qb = q + ((size_t)b * Tq * H + h) * D;
-  const T* kb = k + ((size_t)b * Tk * H + h) * D;
-  const T* vb = v + ((size_t)b * Tk * H + h) * D;
+  const size_t rs_qk = (size_t)H * d, rs_v = (size_t)H * dv;
+  const float* qb = q + ((size_t)b * Tq * H + h) * d;
+  const float* kb = k + ((size_t)b * Tk * H + h) * d;
+  const float* vb = v + ((size_t)b * Tk * H + h) * dv;
 
-  load_rows<BM, D, Sm::LDE>(sQ, qb, q0, Tq, rs);
-  for (int i = threadIdx.x; i < BM * Sm::LDO; i += THREADS) sO[i] = 0.f;
+  load_rows<BMF, D, Sm::LDE>(sQ, qb, q0, Tq, rs_qk, d);
+  for (int i = threadIdx.x; i < BMF * Sm::LDO; i += THREADS) sO[i] = 0.f;
 
-  // Two lanes per row: lane (r, half) owns columns half, half + 2, ...
-  const int r = lane >> 1, half = lane & 1;
-  const int row = warp * WROWS + r;
+  // LPR lanes per row: lane (r, part) owns columns part, part + LPR, ...
+  const int r = lane / LPR, part = lane % LPR;
+  const int row = warp * WR + r;
   const float q_pos = q_off + (float)(q0 + row);
-  const T* wQ = sQ + warp * WROWS * Sm::LDE;
-  float* wS = sS + warp * WROWS * Sm::LDS;
-  T* wP = sP + warp * WROWS * Sm::LDP;
-  float* wO = sO + warp * WROWS * Sm::LDO;
+  const float* wQ = sQ + warp * WR * Sm::LDE;
+  float* wS = sS + warp * WR * Sm::LDS;
+  float* wP = sP + warp * WR * Sm::LDP;
+  float* wO = sO + warp * WR * Sm::LDO;
   float m = NEG_INF, l = 0.f;
 
   int num_k = (Tk + BN - 1) / BN;
   int kv_end = Tk;
   if (causal) {
-    num_k = fwd_num_k(q_off, k_off, q0, BN, Tq, Tk, block_q, block_k);
+    num_k = fwd_num_k(q_off, k_off, q0, BN, Tq, Tk, block_q, block_k, BMF);
     kv_end = ref_kv_end(q_off, k_off, q0 + row, block_q, block_k, Tk);
   }
   __syncthreads();
 
   for (int kt = 0; kt < num_k; ++kt) {
     const int k0 = kt * BN;
-    load_rows<BN, D, Sm::LDE>(sK, kb, k0, Tk, rs);
-    load_rows<BN, D, Sm::LDE>(sV, vb, k0, Tk, rs);
+    load_rows<BN, D, Sm::LDE>(sK, kb, k0, Tk, rs_qk, d);
+    load_rows<BN, D, Sm::LDE>(sV, vb, k0, Tk, rs_v, dv);
     __syncthreads();
 
     // s = (q . k^T) * scale, scale after the product as in the reference
-    warp_mm_abT<BN, D, Sm::LDE, Sm::LDE, Sm::LDS>(wS, wQ, sK);
+    warp_mm_abT<BN, D, Sm::LDE, Sm::LDE, Sm::LDS, WR>(wS, wQ, sK);
     __syncwarp();
     float mx = -INFINITY;
-    for (int c = half; c < BN; c += 2) {
+    for (int c = part; c < BN; c += LPR) {
       const int kc = k0 + c;
       float s = wS[r * Sm::LDS + c] * scale;
       if (kc >= kv_end)
@@ -130,57 +139,58 @@ __global__ void __launch_bounds__(THREADS)
       wS[r * Sm::LDS + c] = s;
       mx = fmaxf(mx, s);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = row_max(mx, LPR);
     const float m_new = fmaxf(m, mx);
     float sum = 0.f;
-    for (int c = half; c < BN; c += 2) {
+    for (int c = part; c < BN; c += LPR) {
       const float p = expf(wS[r * Sm::LDS + c] - m_new);
       sum += p;
       wP[r * Sm::LDP + c] = p;
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum = row_sum(sum, LPR);
     const float alpha = expf(m - m_new);
     l = l * alpha + sum;
     m = m_new;
-    for (int c = half; c < D; c += 2) wO[r * Sm::LDO + c] *= alpha;
+    for (int c = part; c < D; c += LPR) wO[r * Sm::LDO + c] *= alpha;
     __syncwarp();
-    warp_mm_ab_acc<D, BN, Sm::LDP, Sm::LDE, Sm::LDO>(wO, wP, sV);
+    warp_mm_ab_acc<D, BN, Sm::LDP, Sm::LDE, Sm::LDO, WR>(wO, wP, sV);
     __syncthreads();  // sK/sV are overwritten by the next tile
   }
 
-  if (half == 0) {
+  if (part == 0) {
     sL[row] = l;
     if (q0 + row < Tq)
       lse[(size_t)bh * Tq + q0 + row] =
           l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : NEG_INF;
   }
   __syncthreads();
-  store_rows<D, Sm::LDO>(o + ((size_t)b * Tq * H + h) * D, sO, q0, Tq, rs,
-                           sL);
+  store_rows<BMF, Sm::LDO>(o + ((size_t)b * Tq * H + h) * dv, sO, q0, Tq,
+                           rs_v, dv, sL);
 }
 
-// ---- bf16: TMA + wgmma kernel ----------------------------------------------
+// ---- bf16 / fp16: TMA + wgmma kernel ---------------------------------------
 
 template <int D>
 struct FwdSm90 {
-  static constexpr int BN = 64;              // k rows per streamed tile
-  static constexpr int TILE = BM * D * 2;    // bytes of a 64-row tile
+  static constexpr int BN = D > 128 ? 32 : 64;  // k rows per streamed tile
+  static constexpr int QT = BM * D * 2;         // bytes of the Q tile
+  static constexpr int KT = BN * D * 2;         // bytes of a K (or V) tile
   static constexpr int STAGES = 2;
   static constexpr int Q = 0;
-  static constexpr int KV = Q + TILE;        // stage s: K at KV + 2 s TILE,
-                                             // V one TILE further
-  static constexpr int BAR = KV + STAGES * 2 * TILE;  // q, then one per stage
+  static constexpr int KV = Q + QT;             // stage s: K at KV + 2 s KT,
+                                                // V one KT further
+  static constexpr int BAR = KV + STAGES * 2 * KT;  // q, then one per stage
   static constexpr int BYTES = BAR + 8 * (1 + STAGES) + 1024;  // + alignment
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(sm90::WG)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
-                   bf16* __restrict__ o, float* __restrict__ lse, int H,
-                   int Tq, int Tk, int causal, float scale, float q_off,
-                   float k_off, int block_q, int block_k) {
+                   T* __restrict__ o, float* __restrict__ lse, int H,
+                   int Tq, int Tk, int dv, int causal, float scale,
+                   float q_off, float k_off, int block_q, int block_k) {
   using namespace sm90;
   using L = FwdSm90<D>;
   constexpr int BN = L::BN;
@@ -217,12 +227,12 @@ __global__ void __launch_bounds__(sm90::WG)
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect(&bar[0], L::TILE);
+    mbar_expect(&bar[0], L::QT);
     tma_tile<D, BM>(smem + L::Q, &map_q, &bar[0], h, q0, b);
     if (num_k > 0) {
-      mbar_expect(&bar[1], 2 * L::TILE);
+      mbar_expect(&bar[1], 2 * L::KT);
       tma_tile<D, BN>(smem + L::KV, &map_k, &bar[1], h, 0, b);
-      tma_tile<D, BN>(smem + L::KV + L::TILE, &map_v, &bar[1], h, 0, b);
+      tma_tile<D, BN>(smem + L::KV + L::KT, &map_v, &bar[1], h, 0, b);
     }
   }
 
@@ -237,23 +247,23 @@ __global__ void __launch_bounds__(sm90::WG)
     const int s = kt & 1;
     if (tid == 0 && kt + 1 < num_k) {
       // the other stage was released by the __syncthreads ending tile kt-1
-      unsigned char* nxt = smem + L::KV + (s ^ 1) * 2 * L::TILE;
-      mbar_expect(&bar[1 + (s ^ 1)], 2 * L::TILE);
+      unsigned char* nxt = smem + L::KV + (s ^ 1) * 2 * L::KT;
+      mbar_expect(&bar[1 + (s ^ 1)], 2 * L::KT);
       tma_tile<D, BN>(nxt, &map_k, &bar[1 + (s ^ 1)], h, (kt + 1) * BN, b);
-      tma_tile<D, BN>(nxt + L::TILE, &map_v, &bar[1 + (s ^ 1)], h,
+      tma_tile<D, BN>(nxt + L::KT, &map_v, &bar[1 + (s ^ 1)], h,
                       (kt + 1) * BN, b);
     }
     mbar_wait(&bar[1 + s], (kt >> 1) & 1);
-    const uint32_t sK = smem_u32(smem + L::KV + s * 2 * L::TILE);
-    const uint32_t sV = sK + L::TILE;
+    const uint32_t sK = smem_u32(smem + L::KV + s * 2 * L::KT);
+    const uint32_t sV = sK + L::KT;
 
     // S = Q . K^T
     float acc_s[BN / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(acc_s, desc_kmajor<D, BM>(sQ, kk), desc_kmajor<D, BN>(sK, kk),
-               kk > 0);
+      wgmma_ss<T>(acc_s, desc_kmajor<D, BM>(sQ, kk),
+                  desc_kmajor<D, BN>(sK, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc_s);
@@ -289,7 +299,7 @@ __global__ void __launch_bounds__(sm90::WG)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(acc_s[4 * j + e] - m[e >> 1]);
-        l[e >> 1] += p;  // the sum of p in fp32, before the bf16 cast
+        l[e >> 1] += p;  // the sum of p in fp32, before the cast to T
         acc_s[4 * j + e] = p;
       }
 #pragma unroll
@@ -300,20 +310,20 @@ __global__ void __launch_bounds__(sm90::WG)
     // O += P . V, p cast to v's dtype in registers
     uint32_t pf[BN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) to_a_frag(pf[kk], acc_s, kk);
+    for (int kk = 0; kk < BN / 16; ++kk) to_a_frag<T>(pf[kk], acc_s, kk);
     fence_regs(acc_o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs(acc_o, pf[kk], desc_mnmajor<D, BN>(sV, kk));
+      wgmma_rs<T, D, BN>(acc_o, pf[kk], sV, kk);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc_o);
     __syncthreads();  // every product has read stage s: it may be refilled
   }
 
-  const size_t rs = (size_t)H * D;
-  bf16* ob = o + ((size_t)b * Tq * H + h) * D;
+  const size_t rs = (size_t)H * dv;
+  T* ob = o + ((size_t)b * Tq * H + h) * dv;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -321,10 +331,21 @@ __global__ void __launch_bounds__(sm90::WG)
     const int t = q0 + r0 + 8 * i;
     if (t >= Tq) continue;
     const float div = fmaxf(l[i], 1e-30f);
+    T* orow = ob + (size_t)t * rs + c2;
+    auto store = [&](int j) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack2<T>(
+          acc_o[4 * j + 2 * i] / div, acc_o[4 * j + 2 * i + 1] / div);
+    };
+    // a full-width o, the common case, is stored without a per-pair test
+    // (the test in the loop cost the d 64 kernel 1.5% of its time)
+    if (dv == D) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)t * rs + 8 * j + c2) =
-          pack_bf16(acc_o[4 * j + 2 * i] / div, acc_o[4 * j + 2 * i + 1] / div);
+      for (int j = 0; j < D / 8; ++j) store(j);
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        if (8 * j + c2 < dv) store(j);  // dv is even: a pair is wholly in or out
+    }
     if ((lane & 3) == 0) {
       // m is in log2 units; a row that saw only masked keys keeps NEG_INF
       const float ln2 = 0.6931471805599453f;
@@ -337,33 +358,36 @@ __global__ void __launch_bounds__(sm90::WG)
 
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int H, int Tq, int Tk, int causal,
-                       float scale, float q_off, float k_off, int block_q,
-                       int block_k, cudaStream_t stream) {
+                       void* lse, int B, int H, int Tq, int Tk, int d, int dv,
+                       int causal, float scale, float q_off, float k_off,
+                       int block_q, int block_k, cudaStream_t stream) {
+  if (d < 1 || dv < 1 || d > D || dv > D) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
-    dim3 grid((Tq + BM - 1) / BM, B * H);
-    constexpr int bytes = FwdSmem<D>::BYTES;
+    using Sm = FwdSmem<D>;
+    dim3 grid((Tq + Sm::BMF - 1) / Sm::BMF, B * H);
+    constexpr int bytes = Sm::BYTES;
     cudaError_t err = prepare(flash_fwd_kernel<D>, bytes);
     if (err != cudaSuccess) return err;
     flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), H, Tq, Tk, causal, scale, q_off, k_off,
-        block_q, block_k);
+        static_cast<float*>(lse), H, Tq, Tk, d, dv, causal, scale, q_off,
+        k_off, block_q, block_k);
   } else {
-    constexpr int bytes = FwdSm90<D>::BYTES;
+    using L = FwdSm90<D>;
+    constexpr int bytes = L::BYTES;
     CUtensorMap mq, mk, mv;
-    cudaError_t err = sm90::make_map(&mq, q, B, Tq, H, D, BM);
+    cudaError_t err = sm90::make_map<T>(&mq, q, B, Tq, H, d, D, BM);
     if (err == cudaSuccess)
-      err = sm90::make_map(&mk, k, B, Tk, H, D, FwdSm90<D>::BN);
+      err = sm90::make_map<T>(&mk, k, B, Tk, H, d, D, L::BN);
     if (err == cudaSuccess)
-      err = sm90::make_map(&mv, v, B, Tk, H, D, FwdSm90<D>::BN);
-    if (err == cudaSuccess) err = prepare(flash_fwd_sm90<D>, bytes);
+      err = sm90::make_map<T>(&mv, v, B, Tk, H, dv, D, L::BN);
+    if (err == cudaSuccess) err = prepare(flash_fwd_sm90<T, D>, bytes);
     if (err != cudaSuccess) return err;
     dim3 grid(B * H, (Tq + BM - 1) / BM);
-    flash_fwd_sm90<D><<<grid, sm90::WG, bytes, stream>>>(
-        mq, mk, mv, static_cast<bf16*>(o), static_cast<float*>(lse), H, Tq,
-        Tk, causal, scale, q_off, k_off, block_q, block_k);
+    flash_fwd_sm90<T, D><<<grid, sm90::WG, bytes, stream>>>(
+        mq, mk, mv, static_cast<T*>(o), static_cast<float*>(lse), H, Tq, Tk,
+        dv, causal, scale, q_off, k_off, block_q, block_k);
   }
   return cudaGetLastError();
 }
@@ -373,7 +397,8 @@ int info_fwd(int* info) {
   if constexpr (std::is_same<T, float>::value)
     return kernel_info(flash_fwd_kernel<D>, THREADS, FwdSmem<D>::BYTES, info);
   else
-    return kernel_info(flash_fwd_sm90<D>, sm90::WG, FwdSm90<D>::BYTES, info);
+    return kernel_info(flash_fwd_sm90<T, D>, sm90::WG, FwdSm90<D>::BYTES,
+                       info);
 }
 
 }  // namespace hvdflash
@@ -385,15 +410,18 @@ extern "C" int hvd_flash_fwd_info(int dtype, int head_dim, int* info) {
   HVD_FLASH_DISPATCH(dtype, head_dim, info_fwd, info);
 }
 
-// block_q/block_k: the reference's tiling, which decides o on rows with no
-// visible key (0: no reference tiling, every key counts).
-extern "C" int hvd_flash_fwd(int dtype, int head_dim, const void* q,
-                             const void* k, const void* v, void* o, void* lse,
-                             int B, int H, int Tq, int Tk, int causal,
-                             float scale, float q_off, float k_off,
-                             int block_q, int block_k, void* stream) {
+// head_dim: the instantiated width D; d and dv: the widths of q/k and of
+// v/o, each at most D. block_q/block_k: the reference's tiling, which
+// decides o on rows with no visible key (0: no reference tiling, every key
+// counts).
+extern "C" int hvd_flash_fwd(int dtype, int head_dim, int d, int dv,
+                             const void* q, const void* k, const void* v,
+                             void* o, void* lse, int B, int H, int Tq, int Tk,
+                             int causal, float scale, float q_off,
+                             float k_off, int block_q, int block_k,
+                             void* stream) {
   using hvdflash::launch_fwd;
   HVD_FLASH_DISPATCH(dtype, head_dim, launch_fwd, q, k, v, o, lse, B, H, Tq,
-                     Tk, causal, scale, q_off, k_off, block_q, block_k,
+                     Tk, d, dv, causal, scale, q_off, k_off, block_q, block_k,
                      static_cast<cudaStream_t>(stream));
 }

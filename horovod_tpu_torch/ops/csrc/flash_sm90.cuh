@@ -1,11 +1,16 @@
-// Hopper (sm_90a) building blocks of the flash kernels' bf16 paths: TMA tile
-// loads completing on mbarriers, and warpgroup matrix products (wgmma) with
-// fp32 accumulators in registers.
+// Hopper (sm_90a) building blocks of the flash kernels' bf16 and fp16
+// paths: TMA tile loads completing on mbarriers, and warpgroup matrix
+// products (wgmma) with fp32 accumulators in registers. Every helper that
+// touches the 16-bit type takes it as T (bf16 or f16): the two differ only
+// in wgmma's type suffix, the tensor map's data type and the pack of two
+// floats.
 //
-// Shared-memory tiles. A [rows x D] bf16 tile arrives by TMA as D / PW
+// Shared-memory tiles. A [rows x D] 16-bit tile arrives by TMA as D / PW
 // panels of [rows x PW] (PW = min(D, 64) elements, so a panel row is 64 or
 // 128 bytes), each swizzled by the TMA in the pattern of its row width. A
-// panel is the canonical wgmma layout for either operand order:
+// tensor narrower than D (width w < D) arrives zero-filled past column w:
+// the TMA fills what lies outside the tensor. A panel is the canonical
+// wgmma layout for either operand order:
 //   K-major (the product's depth runs along the row, as for Q.K^T):
 //     rows in groups of 8 at stride SBO = 8 * row bytes; a k16 slice starts
 //     32 bytes further along the row;
@@ -18,14 +23,19 @@
 // Accumulator layout of m64nN (fp32), thread t of the warpgroup, warp
 // w = t / 32, lane l: d[4j + e] holds row 16w + l/4 + 8 * (e / 2), column
 // 8j + 2 * (l % 4) + e % 2. The register A operand of m64k16 has the same
-// layout in bf16 pairs, so a score tile turns into the A operand of the next
-// product without leaving registers (to_a_frag).
+// layout in 16-bit pairs, so a score tile turns into the A operand of the
+// next product without leaving registers (to_a_frag). Columns [64p, 64p +
+// 64) of an m64nN accumulator are d[32p .. 32p + 31]: a product wider than
+// 128 runs as one m64n64 product per 64-column panel (rs_panels).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hvdflash {
 namespace sm90 {
@@ -98,7 +108,9 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 }
 
 // A [ROWS x D] tile of one (batch, head) slice, rows [t0, t0 + ROWS), as
-// D / PW panels; the caller's mbarrier expects ROWS * D * 2 bytes.
+// D / PW panels; columns past the tensor's width arrive as zeros (a panel
+// wholly past it too), and the caller's mbarrier expects ROWS * D * 2 bytes
+// whatever the width.
 template <int D, int ROWS>
 __device__ __forceinline__ void tma_tile(unsigned char* dst,
                                          const CUtensorMap* map, uint64_t* bar,
@@ -159,115 +171,163 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
   return make_desc<RB>(tile + kk * 16 * RB, ROWS * RB);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two floats as a pair of T, rounded to nearest even.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, f16>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// Columns [16 kk, 16 kk + 16) of an m64nN fp32 accumulator as the bf16 A
-// fragment of an m64k16 product.
-template <int N>
+// Columns [16 kk, 16 kk + 16) of an m64nN fp32 accumulator as the A
+// fragment (in T) of an m64k16 product.
+template <typename T, int N>
 __device__ __forceinline__ void to_a_frag(uint32_t (&a)[4],
                                           const float (&d)[N], int kk) {
   const int j = 8 * kk;
-  a[0] = pack_bf16(d[j + 0], d[j + 1]);
-  a[1] = pack_bf16(d[j + 2], d[j + 3]);
-  a[2] = pack_bf16(d[j + 4], d[j + 5]);
-  a[3] = pack_bf16(d[j + 6], d[j + 7]);
+  a[0] = pack2<T>(d[j + 0], d[j + 1]);
+  a[1] = pack2<T>(d[j + 2], d[j + 3]);
+  a[2] = pack2<T>(d[j + 4], d[j + 5]);
+  a[3] = pack2<T>(d[j + 6], d[j + 7]);
 }
+
+// The wgmma instructions, written once for both 16-bit types: TY is the
+// type suffix ("bf16" or "f16"). ACC8(o) binds accumulator registers
+// d[OFF + o .. OFF + o + 7].
+#define HVD_ACC8(o)                                                       \
+  "+f"(d[OFF + (o) + 0]), "+f"(d[OFF + (o) + 1]), "+f"(d[OFF + (o) + 2]), \
+      "+f"(d[OFF + (o) + 3]), "+f"(d[OFF + (o) + 4]),                     \
+      "+f"(d[OFF + (o) + 5]), "+f"(d[OFF + (o) + 6]), "+f"(d[OFF + (o) + 7])
+#define HVD_REGS16                                                        \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define HVD_REGS32                                                        \
+  HVD_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "  \
+             "%27, %28, %29, %30, %31"
+#define HVD_REGS64                                                        \
+  HVD_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "  \
+             "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+             "%55, %56, %57, %58, %59, %60, %61, %62, %63"
 
 // d[64 x 32] = A[64 x 16] . B[16 x 32] (+ d when accumulate), A and B
 // K-major in shared memory.
+#define HVD_WGMMA_SS_N32(TY)                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY    \
+               " {" HVD_REGS16 "}, %16, %17, p, 1, 1, 0, 0;\n}\n"         \
+               : HVD_ACC8(0), HVD_ACC8(8)                                 \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+// d[64 x 64], the same.
+#define HVD_WGMMA_SS_N64(TY)                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " {" HVD_REGS32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"         \
+               : HVD_ACC8(0), HVD_ACC8(8), HVD_ACC8(16), HVD_ACC8(24)     \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+// d[64 x N] += A[64 x 16] . B[16 x N], A from registers (a fragment in the
+// accumulator layout), B MN-major in shared memory (transpose bit set).
+#define HVD_WGMMA_RS_N32(TY)                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY    \
+               " {" HVD_REGS16 "}, {%16, %17, %18, %19}, %20, p, 1, 1, "  \
+               "1;\n}\n"                                                  \
+               : HVD_ACC8(0), HVD_ACC8(8)                                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), \
+                 "n"(1))
+#define HVD_WGMMA_RS_N64(TY)                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " {" HVD_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, "  \
+               "1;\n}\n"                                                  \
+               : HVD_ACC8(0), HVD_ACC8(8), HVD_ACC8(16), HVD_ACC8(24)     \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), \
+                 "n"(1))
+#define HVD_WGMMA_RS_N128(TY)                                             \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY   \
+               " {" HVD_REGS64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, "  \
+               "1;\n}\n"                                                  \
+               : HVD_ACC8(0), HVD_ACC8(8), HVD_ACC8(16), HVD_ACC8(24),    \
+                 HVD_ACC8(32), HVD_ACC8(40), HVD_ACC8(48), HVD_ACC8(56)   \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), \
+                 "n"(1))
+
+template <typename T>
+__host__ __device__ constexpr bool is_f16() {
+  return std::is_same<T, f16>::value;
+}
+
+// S-type products: d[64 x 32] or d[64 x 64] from two K-major operands.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  constexpr int OFF = 0;
+  if constexpr (is_f16<T>()) HVD_WGMMA_SS_N32("f16");
+  else HVD_WGMMA_SS_N32("bf16");
 }
-
-// d[64 x 64] = A[64 x 16] . B[16 x 64] (+ d when accumulate), A and B
-// K-major in shared memory.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  constexpr int OFF = 0;
+  if constexpr (is_f16<T>()) HVD_WGMMA_SS_N64("f16");
+  else HVD_WGMMA_SS_N64("bf16");
 }
 
-// d[64 x 32] += A[64 x 16] . B[16 x 32], A from registers (a fragment in
-// the accumulator layout), B MN-major in shared memory (transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
+// O-type products into columns [OFF / 2 * ... ) of an accumulator d: the
+// n32, n64 and n128 forms on d[OFF ..].
+template <typename T, int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[N],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  if constexpr (is_f16<T>()) HVD_WGMMA_RS_N32("f16");
+  else HVD_WGMMA_RS_N32("bf16");
+}
+template <typename T, int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[N],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  if constexpr (is_f16<T>()) HVD_WGMMA_RS_N64("f16");
+  else HVD_WGMMA_RS_N64("bf16");
+}
+template <typename T, int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  if constexpr (is_f16<T>()) HVD_WGMMA_RS_N128("f16");
+  else HVD_WGMMA_RS_N128("bf16");
 }
 
-// d[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (a fragment in
-// the accumulator layout), B MN-major in shared memory (transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
+// Above N = 128: one m64n64 product per 64-column panel P of the B tile,
+// into accumulator columns [64 P, 64 P + 64).
+template <typename T, int D, int ROWS, int P = 0>
+__device__ __forceinline__ void rs_panels(float (&d)[D / 2],
+                                          const uint32_t (&a)[4],
+                                          uint32_t tile, int kk) {
+  if constexpr (P < D / 64) {
+    wgmma_rs_n64<T, 32 * P>(
+        d, a, make_desc<128>(tile + P * ROWS * 128 + kk * 16 * 128,
+                             ROWS * 128));
+    rs_panels<T, D, ROWS, P + 1>(d, a, tile, kk);
+  }
 }
 
-// d[64 x 128] += A[64 x 16] . B[16 x 128], A from registers (a fragment in
-// the accumulator layout), B MN-major in shared memory (transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
+// d[64 x D] += A[64 x 16] . B[16 x D]: k16 slice `kk` of the [ROWS x D]
+// tile at `tile` (MN-major) against the register fragment a.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint32_t tile, int kk) {
+  if constexpr (D == 32)
+    wgmma_rs_n32<T, 0>(d, a, desc_mnmajor<D, ROWS>(tile, kk));
+  else if constexpr (D == 64)
+    wgmma_rs_n64<T, 0>(d, a, desc_mnmajor<D, ROWS>(tile, kk));
+  else if constexpr (D == 128)
+    wgmma_rs_n128<T, 0>(d, a, desc_mnmajor<D, ROWS>(tile, kk));
+  else
+    rs_panels<T, D, ROWS>(d, a, tile, kk);
 }
 
 // ---- host: tensor maps -----------------------------------------------------
@@ -294,23 +354,30 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map of a [B, T, H, D] bf16 tensor read in place, as the 4-D array
-// (D, H, T, B), with a box of one head's [ROWS x PW] panel. Rows past T read
-// as zeros and never reach into the next batch.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int T,
-                            int H, int D, int rows) {
+// Tensor map of a [B, T, H, W] 16-bit tensor read in place, as the 4-D
+// array (W, H, T, B), with a box of one head's [ROWS x PW] panel of a
+// D-wide tile (PW = min(D, 64)). Rows past T and columns past W read as
+// zeros and never reach into the next head or batch. W * 2 bytes must be a
+// multiple of 16 (the TMA's stride rule).
+template <typename T>
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int B,
+                            int Tlen, int H, int W, int D, int rows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
+  if ((W * 2) % 16 != 0 || W > D) return cudaErrorInvalidValue;
   const int pw = D < 64 ? D : 64;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
+  cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)Tlen,
                         (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                           (cuuint64_t)T * H * D * 2};
+  cuuint64_t strides[3] = {(cuuint64_t)W * 2, (cuuint64_t)H * W * 2,
+                           (cuuint64_t)Tlen * H * W * 2};
   cuuint32_t box[4] = {(cuuint32_t)pw, 1, (cuuint32_t)rows, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
   CUresult rc = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map,
+      is_f16<T>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
       pw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

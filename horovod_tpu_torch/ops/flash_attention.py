@@ -13,8 +13,16 @@ reference become three CUDA kernels for Hopper (``csrc/flash_fwd.cu``,
 Each wrapper launches its kernel for a CUDA tensor (or raises) and counts
 the launch in its ``launches`` attribute; for a CPU tensor it runs the
 kernel's plain PyTorch version, which follows the reference tile by tile,
-honouring ``block_q``/``block_k`` exactly. The CUDA kernels use their own
-tile sizes (64 rows, and 32 or 64 streamed rows); the forward kernel also
+honouring ``block_q``/``block_k`` exactly. The kernels take what the Pallas
+kernels take: fp32, bf16 and fp16, and q/k of any width d with v of any
+width dv, up to 256 (wgmma's largest N, ROADMAP C29). They are instantiated
+at the widths of ``_KERNEL_HEAD_DIMS``; a launch runs at the smallest one
+>= max(d, dv) and reads the narrower tensors in place, their missing
+columns as zeros, which change neither q.k^T nor the lse. Only 16-bit
+widths that are not a multiple of 8 (rows the TMA cannot address) are
+copied into zero-padded tensors first, and the outputs sliced back. The
+CUDA kernels use their own tile sizes (64 rows, or 32 in fp32 above width
+128, and 32 or 64 streamed rows); the forward kernel also
 takes the block arguments, which decide o on causal rows that see no key
 (the mean of v over the keys the reference's tiles visit), so the two
 agree on every row.
@@ -43,8 +51,11 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps exp() NaN-free
 # the shortest length swept. The reference keeps its TPU value, 1024.
 DEFAULT_FLASH_MIN_SEQ = 256
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+# dtype codes and instantiated head widths of the CUDA kernels: the cases of
+# HVD_FLASH_DISPATCH (csrc/flash_common.cuh), kept equal by lint HVL104
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_KERNEL_HEAD_DIMS = (32, 64, 128, 192, 256)
+MAX_HEAD_DIM = _KERNEL_HEAD_DIMS[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -232,16 +243,15 @@ def _check_cuda(name: str, tensors: dict) -> int:
     returns its dtype code."""
     q = tensors["q"]
     b, _, h, d = q.shape
+    dv = tensors["v"].shape[-1]
     dtype = q.dtype
     if dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{name}: CUDA kernel takes float32 or bfloat16, "
-                        f"got {dtype}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: CUDA kernel takes head_dim in "
-                         f"{_KERNEL_HEAD_DIMS}, got {d}")
-    if tensors["v"].shape[-1] != d:
-        raise ValueError(f"{name}: CUDA kernel takes v's head_dim equal to "
-                         f"q's ({d}), got {tensors['v'].shape[-1]}")
+        raise TypeError(f"{name}: CUDA kernel takes float32, bfloat16 or "
+                        f"float16, got {dtype}")
+    if max(d, dv) > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: CUDA kernel takes head_dim up to "
+                         f"{MAX_HEAD_DIM} (wgmma's largest N), got q/k {d}, "
+                         f"v {dv}")
     if b * h > 65535:
         raise ValueError(f"{name}: batch*heads={b * h} exceeds the grid")
     for key, t in tensors.items():
@@ -256,6 +266,46 @@ def _check_cuda(name: str, tensors: dict) -> int:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
     return _KERNEL_DTYPES[dtype]
+
+
+def kernel_width(d: int, dv: int) -> int:
+    """The instantiated head width a launch with q/k of width ``d`` and v
+    of width ``dv`` runs at: the smallest of ``_KERNEL_HEAD_DIMS`` >=
+    max(d, dv)."""
+    for w in _KERNEL_HEAD_DIMS:
+        if max(d, dv) <= w:
+            return w
+    raise ValueError(f"no CUDA kernel for head_dim {max(d, dv)} "
+                     f"(at most {MAX_HEAD_DIM})")
+
+
+def reads_in_place(dtype: torch.dtype, d: int, dv: int) -> bool:
+    """Whether the kernels read tensors of widths ``d`` and ``dv`` in
+    place: always in fp32 (plain loads); in 16 bits when each row is a
+    multiple of 16 bytes, as the TMA's strides must be."""
+    return dtype == torch.float32 or (d % 8 == 0 and dv % 8 == 0)
+
+
+def pad_width(x: torch.Tensor, w: int) -> torch.Tensor:
+    """``x`` with zero columns appended to width ``w`` (``x`` itself when
+    it is that wide)."""
+    if x.shape[-1] == w:
+        return x
+    return torch.nn.functional.pad(x, (0, w - x.shape[-1]))
+
+
+def padded(fn, w: int, widths, *args):
+    """Pad-and-slice: ``fn`` (a kernel's launch, or its plain version) with
+    its 4-D tensor arguments (q, k, v, do) zero-padded to width ``w``, and
+    each of its outputs sliced back to its entry of ``widths`` (None: left
+    as it is, the lse). Exact: zero columns add nothing to q.k^T, do.v^T or
+    the lse, and the padded output columns are dropped."""
+    out = fn(*(pad_width(a, w) if isinstance(a, torch.Tensor) and
+               a.dim() == 4 else a for a in args))
+    outs = out if isinstance(out, tuple) else (out,)
+    outs = tuple(o if n is None else o[..., :n].contiguous()
+                 for o, n in zip(outs, widths))
+    return outs if isinstance(out, tuple) else outs[0]
 
 
 def _launch(symbol: str, name: str, device: torch.device, *args) -> None:
@@ -288,28 +338,78 @@ def _require_cuda(name: str, x: torch.Tensor) -> None:
                          "(CUDA runs the kernel, the CPU its plain version)")
 
 
+def _fwd_cuda(q, k, v, causal, sm_scale, q_off, k_off, block_q, block_k):
+    """The forward kernel on tensors it reads in place."""
+    b, tq, h, d = q.shape
+    tk, dv = k.shape[1], v.shape[-1]
+    w = kernel_width(d, dv)
+    o = torch.empty((b, tq, h, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    bq, bk = _reference_tiling(tq, tk, block_q, block_k)
+    _launch("hvd_flash_fwd", "flash_fwd", q.device, _KERNEL_DTYPES[q.dtype],
+            w, d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, h, tq, tk, int(causal), sm_scale, q_off,
+            k_off, bq, bk)
+    return o, lse
+
+
+def _dq_cuda(q, k, v, do, lse, corr, causal, sm_scale, q_off, k_off,
+             block_q, block_k):
+    """The dq kernel on tensors it reads in place."""
+    b, tq, h, d = q.shape
+    tk, dv = k.shape[1], v.shape[-1]
+    w = kernel_width(d, dv)
+    dq = torch.empty_like(q)
+    _launch("hvd_flash_bwd_dq", "flash_bwd_dq", q.device,
+            _KERNEL_DTYPES[q.dtype], w, d, dv, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), corr.data_ptr(),
+            dq.data_ptr(), b, h, tq, tk, int(causal), sm_scale, q_off, k_off)
+    return dq
+
+
+def _dkv_cuda(q, k, v, do, lse, corr, causal, sm_scale, q_off, k_off,
+              block_q, block_k):
+    """The dk/dv kernel on tensors it reads in place."""
+    b, tq, h, d = q.shape
+    tk, dv = k.shape[1], v.shape[-1]
+    w = kernel_width(d, dv)
+    dk, dvg = torch.empty_like(k), torch.empty_like(v)
+    _launch("hvd_flash_bwd_dkv", "flash_bwd_dkv", q.device,
+            _KERNEL_DTYPES[q.dtype], w, d, dv, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), corr.data_ptr(),
+            dk.data_ptr(), dvg.data_ptr(), b, h, tq, tk, int(causal),
+            sm_scale, q_off, k_off)
+    return dk, dvg
+
+
+def _on_card(name, launch, widths, tensors, *args):
+    """The CUDA branch of a wrapper: the checks, then the kernel on the
+    tensors in place or, for 16-bit widths the TMA cannot read in place,
+    on zero-padded copies, its outputs sliced back to ``widths``."""
+    _require_cuda(name, tensors["q"])
+    _check_cuda(name, tensors)
+    q, v = tensors["q"], tensors["v"]
+    d, dv = q.shape[-1], v.shape[-1]
+    inputs = tuple(tensors.values())
+    if reads_in_place(q.dtype, d, dv):
+        return launch(*inputs, *args)
+    return padded(launch, kernel_width(d, dv), widths, *inputs, *args)
+
+
 def flash_fwd(q, k, v, causal: bool, sm_scale: float, q_off: float = 0.0,
               k_off: float = 0.0, block_q: int = 512, block_k: int = 512
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel: (o [B,Tq,H,Dv] in q's dtype, lse [B,H,Tq] fp32)."""
     tensors = {"q": q, "k": k, "v": v}
     _check_shapes("flash_fwd", tensors)
-    with flash_launch("flash_fwd", q, k, causal, q_off, k_off):
+    args = (causal, sm_scale, q_off, k_off, block_q, block_k)
+    with flash_launch("flash_fwd", q, k, v, causal, q_off, k_off):
         if q.device.type == "cpu":
-            return flash_fwd_plain(q, k, v, causal, sm_scale, q_off, k_off,
-                                   block_q, block_k)
-        _require_cuda("flash_fwd", q)
-        code = _check_cuda("flash_fwd", tensors)
-        b, tq, h, d = q.shape
-        tk = k.shape[1]
-        o = torch.empty_like(q)
-        lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-        bq, bk = _reference_tiling(tq, tk, block_q, block_k)
-        _launch("hvd_flash_fwd", "flash_fwd", q.device, code, d, q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h,
-                tq, tk, int(causal), sm_scale, q_off, k_off, bq, bk)
+            return flash_fwd_plain(q, k, v, *args)
+        out = _on_card("flash_fwd", _fwd_cuda, (v.shape[-1], None),
+                       tensors, *args)
         flash_fwd.launches += 1
-        return o, lse
+        return out
 
 
 def flash_bwd_dq(q, k, v, do, lse, corr, causal: bool, sm_scale: float,
@@ -318,46 +418,30 @@ def flash_bwd_dq(q, k, v, do, lse, corr, causal: bool, sm_scale: float,
     """dq kernel: dq [B,Tq,H,D] in q's dtype."""
     tensors = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "corr": corr}
     _check_shapes("flash_bwd_dq", tensors)
-    with flash_launch("flash_bwd_dq", q, k, causal, q_off, k_off):
+    args = (causal, sm_scale, q_off, k_off, block_q, block_k)
+    with flash_launch("flash_bwd_dq", q, k, v, causal, q_off, k_off):
         if q.device.type == "cpu":
-            return flash_bwd_dq_plain(q, k, v, do, lse, corr, causal, sm_scale,
-                                      q_off, k_off, block_q, block_k)
-        _require_cuda("flash_bwd_dq", q)
-        code = _check_cuda("flash_bwd_dq", tensors)
-        b, tq, h, d = q.shape
-        tk = k.shape[1]
-        dq = torch.empty_like(q)
-        _launch("hvd_flash_bwd_dq", "flash_bwd_dq", q.device, code, d,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), corr.data_ptr(), dq.data_ptr(), b, h, tq, tk,
-                int(causal), sm_scale, q_off, k_off)
+            return flash_bwd_dq_plain(q, k, v, do, lse, corr, *args)
+        out = _on_card("flash_bwd_dq", _dq_cuda, (q.shape[-1],), tensors,
+                       *args)
         flash_bwd_dq.launches += 1
-        return dq
+        return out
 
 
 def flash_bwd_dkv(q, k, v, do, lse, corr, causal: bool, sm_scale: float,
                   q_off: float = 0.0, k_off: float = 0.0, block_q: int = 512,
                   block_k: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dk/dv kernel: (dk, dv), each [B,Tk,H,D] in k's/v's dtype."""
+    """dk/dv kernel: (dk [B,Tk,H,D], dv [B,Tk,H,Dv]) in k's/v's dtype."""
     tensors = {"q": q, "k": k, "v": v, "do": do, "lse": lse, "corr": corr}
     _check_shapes("flash_bwd_dkv", tensors)
-    with flash_launch("flash_bwd_dkv", q, k, causal, q_off, k_off):
+    args = (causal, sm_scale, q_off, k_off, block_q, block_k)
+    with flash_launch("flash_bwd_dkv", q, k, v, causal, q_off, k_off):
         if q.device.type == "cpu":
-            return flash_bwd_dkv_plain(q, k, v, do, lse, corr, causal,
-                                       sm_scale, q_off, k_off, block_q,
-                                       block_k)
-        _require_cuda("flash_bwd_dkv", q)
-        code = _check_cuda("flash_bwd_dkv", tensors)
-        b, tq, h, d = q.shape
-        tk = k.shape[1]
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        _launch("hvd_flash_bwd_dkv", "flash_bwd_dkv", q.device, code, d,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), corr.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), b, h, tq, tk, int(causal), sm_scale, q_off,
-                k_off)
+            return flash_bwd_dkv_plain(q, k, v, do, lse, corr, *args)
+        out = _on_card("flash_bwd_dkv", _dkv_cuda,
+                       (k.shape[-1], v.shape[-1]), tensors, *args)
         flash_bwd_dkv.launches += 1
-        return dk, dv
+        return out
 
 
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
@@ -377,7 +461,8 @@ def launch_counts() -> dict:
 def kernel_info(name: str, dtype: torch.dtype, head_dim: int) -> dict:
     """Registers and local-memory (spill) bytes per thread, dynamic shared
     memory per block and resident blocks per SM of one CUDA kernel
-    (``name`` as in :data:`KERNELS`), as the card reports them."""
+    (``name`` as in :data:`KERNELS`) at an instantiated ``head_dim`` (one
+    of ``_KERNEL_HEAD_DIMS``), as the card reports them."""
     import ctypes
     from horovod_tpu_torch.ops import _build
     if dtype not in _KERNEL_DTYPES or head_dim not in _KERNEL_HEAD_DIMS:

@@ -42,13 +42,18 @@ class FlopsEstimate:
 # ---------------------------------------------------------------------------
 # The flash kernels' share
 
-# Model FLOPs per visible (q, k) pair and head-dim element, by kernel: the
-# forward's two products (q.k and p.v, 2 FLOPs per multiply-add each), and
-# the backward's four, split as the kernels compute them: dq takes dO.v^T
-# and dS.k, dk/dv takes dS^T.q and P^T.dO. The kernels' recomputation of
-# S (and dk/dv's second dO.v^T) is not model work and is not counted.
-FLASH_FLOPS_PER_PAIR_DIM = {"flash_fwd": 4, "flash_bwd_dq": 4,
-                            "flash_bwd_dkv": 4}
+# The flash kernels. Each computes two products over every visible (q, k)
+# pair, one at q/k's width d and one at v's width dv, 2 FLOPs per
+# multiply-add: the forward q.k^T and p.v, dq dO.v^T and dS.k, dk/dv dS^T.q
+# and P^T.dO. The kernels' recomputation of S (and dk/dv's second dO.v^T)
+# is not model work and is not counted.
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def flash_pair_flops(d: int, dv: int) -> int:
+    """Model FLOPs of one flash kernel per visible (q, k) pair, at the
+    caller's widths (never a padded one)."""
+    return 2 * (d + dv)
 
 
 def attention_pairs(tq: int, tk: int, causal: bool, q_off: float = 0.0,
@@ -70,7 +75,7 @@ class _Tally:
     def __init__(self, counter):
         self.counter = counter
         self.aten_inside = 0.0  # aten FLOPs dispatched inside launches
-        self.flash = {name: 0.0 for name in FLASH_FLOPS_PER_PAIR_DIM}
+        self.flash = {name: 0.0 for name in FLASH_KERNELS}
 
 
 # the counts in progress, innermost last: module-wide, not per thread,
@@ -79,11 +84,12 @@ _active: List[_Tally] = []
 
 
 @contextlib.contextmanager
-def flash_launch(name: str, q, k, causal: bool, q_off: float,
+def flash_launch(name: str, q, k, v, causal: bool, q_off: float,
                  k_off: float):
-    """Wraps one launch of flash kernel ``name`` (q [B, Tq, H, D], k [B, Tk,
-    H, D]): inside :func:`compiled_flops`, its model FLOPs are counted
-    and the aten ops it dispatches are not; otherwise it does nothing."""
+    """Wraps one launch of flash kernel ``name`` (q [B, Tq, H, d], k [B, Tk,
+    H, d], v [B, Tk, H, dv]): inside :func:`compiled_flops`, its model FLOPs
+    are counted and the aten ops it dispatches are not; otherwise it does
+    nothing."""
     if not _active:
         yield
         return
@@ -92,7 +98,7 @@ def flash_launch(name: str, q, k, causal: bool, q_off: float,
     yield
     tally.aten_inside += tally.counter.get_total_flops() - before
     b, tq, h, d = q.shape
-    tally.flash[name] += FLASH_FLOPS_PER_PAIR_DIM[name] * d * b * h * \
+    tally.flash[name] += flash_pair_flops(d, v.shape[-1]) * b * h * \
         attention_pairs(tq, k.shape[1], causal, q_off, k_off)
 
 

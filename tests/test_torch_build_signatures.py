@@ -111,8 +111,8 @@ def test_wrapper_passes_as_many_arguments(symbol):
 
 
 @pytest.mark.parametrize("name,dtype,head_dim", [
-    ("flash_fwd", "float16", 64), ("flash_bwd_dkv", "bfloat16", 48),
-    ("flash_bwd", "bfloat16", 64)])
+    ("flash_fwd", "float64", 64), ("flash_bwd_dkv", "bfloat16", 48),
+    ("flash_fwd", "float16", 512), ("flash_bwd", "bfloat16", 64)])
 def test_kernel_info_rejects_what_has_no_kernel(name, dtype, head_dim):
     import torch
     from horovod_tpu_torch.ops import flash_attention as fa

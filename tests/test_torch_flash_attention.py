@@ -278,20 +278,21 @@ def test_wrappers_reject_mismatched_shapes(bad):
 
 def test_wrappers_accept_matching_shapes_with_other_value_dim():
     """The plain versions take v's head dim apart from q's, as the
-    reference does; the CUDA check refuses it."""
+    reference does, and so does the CUDA check."""
     t = _wrapper_inputs(v=(1, 128, 2, 16), do=(1, 64, 2, 16))
     args = (True, 0.125, 0.0, 0.0, 64, 64)
     o, lse = fa.flash_fwd(t["q"], t["k"], t["v"], *args)
     assert o.shape == (1, 64, 2, 16) and lse.shape == (1, 2, 64)
     dk, dv = fa.flash_bwd_dkv(*t.values(), *args)
     assert dk.shape == (1, 128, 2, 32) and dv.shape == (1, 128, 2, 16)
-    with pytest.raises(ValueError, match="v's head_dim"):
-        fa._check_cuda("flash_fwd", t)
+    assert fa._check_cuda("flash_fwd", t) == fa._KERNEL_DTYPES[torch.float32]
+    assert fa._check_cuda("flash_bwd_dkv", t) == \
+        fa._KERNEL_DTYPES[torch.float32]
 
 
 @pytest.mark.parametrize("change, error, match", [
-    (dict(dtype=torch.float16), TypeError, "float32 or bfloat16"),
-    (dict(head_dim=48), ValueError, "head_dim in"),
+    (dict(dtype=torch.float64), TypeError, "float32, bfloat16 or float16"),
+    (dict(head_dim=512), ValueError, "head_dim up to 256"),
     (dict(lse_dtype=torch.float64), TypeError, "lse is"),
     (dict(strided="k"), ValueError, "k must be contiguous"),
 ])
@@ -316,7 +317,7 @@ def test_cuda_check_refuses_what_the_kernels_do_not_take(change, error,
 
 
 def test_cuda_check_passes_supported_inputs():
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         t = _wrapper_inputs()
         t = {key: x if key in ("lse", "corr") else x.to(dtype)
              for key, x in t.items()}

@@ -224,7 +224,63 @@ def test_default_roots_skip_lint_fixtures():
 
 
 def test_rules_are_the_python_rules():
-    assert sorted(RULES) == [f"HVL00{i}" for i in range(1, 9)]
+    """The Python rules, and HVL104 over the kernel ABI (the reference's
+    HVL101-HVL103 read engine C++ the port does not have)."""
+    assert sorted(RULES) == [f"HVL00{i}" for i in range(1, 9)] + ["HVL104"]
+
+
+# -- HVL104: the kernel ABI ------------------------------------------------
+
+@pytest.mark.parametrize("name,path,line,words", [
+    ("unbound", "csrc/kern.cu", 14, "`hvd_kern_reset` is not bound"),
+    ("arity", "_build.py", 8, "declare 6 parameter(s) but the C signature"),
+    ("width", "flash_attention.py", 6, "(dtype 1, head_dim 256), which "
+                                       "HVD_FLASH_DISPATCH lacks"),
+])
+def test_hvl104_fires_on_each_drift(name, path, line, words):
+    """An unbound export, a wrong arity and a width the dispatch lacks,
+    each flagged at its line on the side that drifted."""
+    fixture = FIXTURES / f"hvl104_{name}"
+    findings, fired = rules_in(f"hvl104_{name}", rules={"HVL104"})
+    assert fired == ["HVL104"]
+    where = {(f.path, f.line) for f in findings}
+    assert where == {((fixture / path).relative_to(REPO).as_posix(), line)}
+    assert any(words in f.message for f in findings), \
+        [f.message for f in findings]
+
+
+def test_hvl104_clean_fixture_and_the_port():
+    """The clean fixture lints clean under every rule, and HVL104 finds
+    nothing in the port, whose sides it does read: five bound exports,
+    and fifteen dispatch cases equal to the Python side's."""
+    import ast
+    from horovod_tpu_torch.lint import abi_rules
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import flash_attention as fa
+    findings, _ = rules_in("hvl104_clean")
+    assert findings == [], [f.render() for f in findings]
+    assert run_lint(repo_root=REPO, rules={"HVL104"}) == []
+    ops = REPO / "horovod_tpu_torch" / "ops"
+    exports = {}
+    for f in _build.SOURCES.values():
+        exports.update(abi_rules.parse_exports((ops / "csrc" / f)
+                                               .read_text()))
+    assert set(exports) == set(_build.SIGNATURES)
+    cases = abi_rules.parse_dispatch((ops / "csrc" / "flash_common.cuh")
+                                     .read_text())
+    assert set(cases) == {(c, w) for c in fa._KERNEL_DTYPES.values()
+                          for w in fa._KERNEL_HEAD_DIMS}
+    _, signatures = abi_rules.parse_build(ast.parse(
+        (ops / "_build.py").read_text()))
+    assert {s: n for s, (_, n, _) in signatures.items()} == \
+        {s: len(t) for s, (_, t) in _build.SIGNATURES.items()}
+
+
+def test_hvl104_param_count():
+    from horovod_tpu_torch.lint.abi_rules import param_count
+    text = 'extern "C" int f(int a, void (*cb)(int, int), float b)'
+    assert param_count(text, text.index("(")) == 3
+    assert param_count("g(void)", 1) == 0 and param_count("g()", 1) == 0
 
 
 # -- the gate: the port itself lints clean ---------------------------------

@@ -128,6 +128,29 @@ def test_tiny_gpt_step_against_hand_count(monkeypatch):
     assert "flash kernels" in est.detail and "flash_bwd_dkv" in est.detail
 
 
+@pytest.mark.parametrize("d,dv,causal", [(64, 32, True), (48, 80, False),
+                                          (192, 128, True)])
+def test_flash_flops_take_v_width_apart_from_q(d, dv, causal):
+    """With v's width apart from q's, each flash kernel counts 2 (d + dv)
+    FLOPs per visible pair: its q.k^T-side product at d, its v-side one at
+    dv, at the caller's widths (never the kernels' padded one)."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator().manual_seed(d + dv)
+    b, t, h = 2, 64, 2
+    q, k = (torch.randn(b, t, h, d, generator=g, requires_grad=True)
+            for _ in range(2))
+    v = torch.randn(b, t, h, dv, generator=g, requires_grad=True)
+
+    def step():
+        fa.flash_attention(q, k, v, causal=causal, block_q=32,
+                           block_k=32).sum().backward()
+    aten, flash = flops.count_flops(step)
+    want = 2 * (d + dv) * b * h * flops.attention_pairs(t, t, causal)
+    assert flash == {name: float(want) for name in flops.FLASH_KERNELS}
+    assert flops.flash_pair_flops(d, dv) == 2 * (d + dv)
+    assert flops.flash_pair_flops(d, d) == 4 * d  # the 12 D of a step
+
+
 def test_collective_scopes_in_a_profiler_trace():
     """The reference's names (collectives.py:93-319) on world-1
     collectives, and the eager ops' host spans (reference eager.py:139,
