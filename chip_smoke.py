@@ -11,11 +11,11 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
 1. device    - card name and power limit (nvidia-smi);
 2. build     - nvcc builds the three flash-attention kernels from
                horovod_tpu_torch/ops/csrc, every instantiation (fp32, bf16
-               and fp16 at head widths 32, 64, 128, 192 and 256), both
-               sources at once;
+               and fp16 at head widths 32, 64, 128, 192 and 256, and the
+               wide one of each, any width above), both sources at once;
 3. resources - registers, spills, shared memory and blocks per SM of every
                kernel instantiation as the card reports them; the bf16 and
-               fp16 TMA/wgmma kernels must not spill;
+               fp16 TMA/wgmma kernels, wide ones included, must not spill;
 4. kernels   - each CUDA kernel against its plain PyTorch version on the
                same card tensors: the GPT-2-small shape (bf16 causal and
                not, fp16 causal), the BERT-Large shape (bf16, non-causal),
@@ -27,10 +27,18 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                cannot read in place (the wrapper's zero-padded copy), the
                widths phase's bf16 shapes (B 8, T 1024, causal, 8 heads at
                d 96 and 3 at d 256), the gradients at the main path's
-               16-bit shapes (fp16 at d 64, bf16 at d 96 and 256) against
-               float64 (no farther than the plain version's, normwise,
-               and the noise in rows that see one key under the floor),
-               and small fp32/bf16 shapes with offsets, a fully-future
+               16-bit shapes (fp16 at d 64, bf16 at d 96, 256, 384 and
+               768) against float64 (no farther than the plain version's,
+               normwise, and the noise in rows that see one key under the
+               floor),
+               the wide kernels (fp32, bf16 and fp16 at d 384 and at
+               576/512, causal; bf16 at 288, 512, 768 and 1024, causal,
+               512 full and with a ring's off-diagonal offsets, a padded
+               copy at 300/290, a ragged 200 at 384, fp32 and bf16 at
+               320/448 with Tq != Tk and offsets; the widths phase's 2
+               and 1 heads of GPT-2 small; B 2, H 2, T 128-1024), batch *
+               heads 65,600 (bf16 d 64, T 64), and small fp32/bf16
+               shapes with offsets, a fully-future
                block, Tq != Tk, ragged lengths, a single tile, one q tile
                against 1024 keys, rows with no visible key under 512-row
                reference tiles, and return_lse with a dlse cotangent, o
@@ -56,7 +64,11 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                small token count (B=8, T=1024, causal, H*d about 768) in
                fp16 at d 64, in bf16 at d 96 (8 heads) and 256 (3 heads),
                MLA's 192/128 (4 heads), and d 60 (the zero-padded copy)
-               beside d 64 in bf16;
+               beside d 64 in bf16, and on the wide kernels: bf16 d 384 (2
+               heads), 768 (1) and 288 (3: a 32-column remainder chunk),
+               fp16 d 512 (2) and the absorbed MLA's 576/512 (4); each row
+               names the SDPA backend that takes its shape (null where
+               only the math backend does);
 7. crossover - dense against flash attention, forward plus backward, over
                the key length (the routing threshold DEFAULT_FLASH_MIN_SEQ);
 8. train     - the main path: init() on NCCL, GptSmall (bf16 compute, fp32
@@ -66,8 +78,10 @@ Phases, one JSON line each on stdout; any failure raises and exits non-zero:
                launched 12 times per step;
 8a. widths   - the main path at the kernels' other dtypes and widths:
                GPT-2 small (12 layers, hidden 768, seq 1024, batch 8) as
-               in train, in fp16 at 12 heads, in bf16 at 8 heads (d 96)
-               and at 3 heads (d 256), 5 steps each on the flash kernels,
+               in train, in fp16 at 12 heads, in bf16 at 8 heads (d 96),
+               3 heads (d 256), 2 heads (d 384) and 1 head (d 768, the
+               last two on the wide kernels), 5 steps each on the flash
+               kernels,
                then 5 steps from the same weights on the dense route
                (HOROVOD_FLASH_MIN_SEQ above 1024), fp16 with its loss
                scaled by 2^13: every loss finite, the flash run's within
@@ -439,28 +453,36 @@ def tolerances(dtype):
 NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the main path's 16-bit shapes held against float64 (``float64_noise``)
 FLOAT64_CASES = ("main_f16_causal", "widths_bf16_h8_d96_causal",
-                 "widths_bf16_h3_d256_causal")
+                 "widths_bf16_h3_d256_causal", "widths_bf16_h2_d384_causal",
+                 "widths_bf16_h1_d768_causal")
 # the kernel cases at the shapes the main paths give the kernels (GPT-2
 # small causal, BERT-Large non-causal, the world-1 ring's one call): the
 # kernels line's max_abs_err
 MAIN_PATH_CASES = ("main_bf16_causal", "bertlarge_bf16_full",
                    "par_bf16_t32768_causal", "main_f16_causal",
-                   "widths_bf16_h8_d96_causal", "widths_bf16_h3_d256_causal")
+                   "widths_bf16_h8_d96_causal", "widths_bf16_h3_d256_causal",
+                   "widths_bf16_h2_d384_causal", "widths_bf16_h1_d768_causal")
+
+
+def width_key(w) -> str:
+    """An instantiation's name in the lines: d<width>, or wide."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    return "wide" if w == fa._KERNEL_WIDE else f"d{w}"
 
 
 def kernel_resources():
     """Registers, spill bytes, shared memory and resident blocks per SM of
-    every kernel instantiation (each dtype at each head width), as the
-    card reports them. The bf16 and fp16 TMA/wgmma kernels (forward, dq
-    and dk/dv) must not spill: their accumulators are meant to live in
-    registers."""
+    every kernel instantiation (each dtype at each head width, and the
+    wide one), as the card reports them. The bf16 and fp16 TMA/wgmma
+    kernels (forward, dq and dk/dv) must not spill: their accumulators are
+    meant to live in registers."""
     from horovod_tpu_torch.ops import flash_attention as fa
     out = {}
     for name in NAMES:
         for dt in fa._KERNEL_DTYPES:
-            for d in fa._KERNEL_HEAD_DIMS:
+            for d in fa._KERNEL_HEAD_DIMS + (fa._KERNEL_WIDE,):
                 info = fa.kernel_info(name, dt, d)
-                key = f"{name}/{str(dt)[6:]}/d{d}"
+                key = f"{name}/{str(dt)[6:]}/{width_key(d)}"
                 out[key] = info
                 if dt.itemsize == 2 and info["local_bytes"]:
                     raise AssertionError(f"{key} spills: {info}")
@@ -540,6 +562,7 @@ def kernel_cases():
     par = dict(b=PAR["b"], tq=PAR["t"], tk=PAR["t"], h=PAR["h"], d=PAR["d"],
                bq=512, bk=512, causal=True, dtype=bf16)
     shard = dict(par, tq=RING_SHARD["t"], tk=RING_SHARD["t"], dlse=True)
+    wide = dict(b=2, tq=512, tk=512, h=2, bq=512, bk=512)
     t = float(RING_SHARD["t"])
     return [
         dict(name="main_bf16_causal", causal=True, **m),
@@ -641,6 +664,46 @@ def kernel_cases():
              **dict(m, h=8, d=96)),
         dict(name="widths_bf16_h3_d256_causal", causal=True, seed=33,
              **dict(m, h=3, d=256)),
+        # the wide kernels (any d and dv past 256, the head dimension cut
+        # into 256-column chunks): each dtype at 384 and at the absorbed
+        # MLA's 576/512; a 32-column remainder chunk (288), 512, 768 and
+        # 1024 in bf16; 512 without a mask and at a ring's off-diagonal
+        # offsets (every pair visible, a dlse); 16-bit rows the TMA cannot
+        # address (300/290: the padded copy); a ragged 200; Tq != Tk with
+        # offsets and dv apart from d (320/448); the widths phase's GPT-2
+        # small at 2 and 1 heads
+        *[dict(name=f"{n}_wide_d{d}_dv{dv}_causal", d=d, dv=dv,
+               causal=True, dtype=dt, dlse=True, seed=34 + i, **wide)
+          for i, (n, dt, d, dv) in enumerate(
+              (n, dt, d, dv) for n, dt in (("f32", f32), ("bf16", bf16),
+                                           ("f16", f16))
+              for d, dv in ((384, 384), (576, 512)))],
+        *[dict(name=f"bf16_wide_d{d}_causal", d=d, causal=True, dtype=bf16,
+               dlse=True, seed=40 + i, **dict(wide, tq=t, tk=t, bq=t, bk=t))
+          for i, (d, t) in enumerate(((288, 512), (512, 512), (768, 1024),
+                                      (1024, 1024)))],
+        dict(name="bf16_wide_d512_full", d=512, causal=False, dtype=bf16,
+             dlse=True, seed=44, **wide),
+        dict(name="bf16_wide_d512_ring_offdiag", d=512, causal=True,
+             q_off=1024.0, k_off=0.0, dtype=bf16, dlse=True, seed=45, **wide),
+        dict(name="bf16_wide_d300_dv290_padded_copy", d=300, dv=290,
+             causal=True, dtype=bf16, dlse=True, seed=46, **wide),
+        dict(name="bf16_wide_d384_ragged_200", b=2, tq=200, tk=200, h=2,
+             d=384, bq=200, bk=200, causal=True, dtype=bf16, dlse=True,
+             seed=50),
+        dict(name="f32_wide_d320_dv448_offsets_tq_ne_tk", b=2, tq=128,
+             tk=256, h=2, d=320, dv=448, bq=128, bk=128, causal=True,
+             q_off=128.0, dtype=f32, dlse=True, seed=51),
+        dict(name="bf16_wide_d320_dv448_offsets_tq_ne_tk", b=2, tq=128,
+             tk=256, h=2, d=320, dv=448, bq=128, bk=128, causal=True,
+             q_off=128.0, dtype=bf16, dlse=True, seed=52),
+        dict(name="widths_bf16_h2_d384_causal", causal=True, seed=47,
+             **dict(m, h=2, d=384)),
+        dict(name="widths_bf16_h1_d768_causal", causal=True, seed=48,
+             **dict(m, h=1, d=768)),
+        # batch * heads past 65,535 (a grid's y limit): B*H on the grid's x
+        dict(name="bf16_d64_bh65600", b=4, tq=64, tk=64, h=16400, d=64,
+             bq=64, bk=64, causal=True, dtype=bf16, seed=49),
     ]
 
 
@@ -869,17 +932,26 @@ def timing(device, shape=MAIN, causal=True, q_off=0.0, k_off=0.0,
                      "plain_ms": statistics.median(pt),
                      "ms_turns": kt, "plain_ms_turns": pt}
     # yardstick: one library call on the same inputs in SDPA's [B, H, T, D];
-    # its backward alone is autograd.grad on a retained graph
+    # its backward alone is autograd.grad on a retained graph. The backend
+    # SDPA picks for the shape is named; where only its math backend takes
+    # it (which writes the whole score matrix), there is no yardstick.
+    from torch.nn.attention import SDPBackend
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=sdpa_causal)
+    backend = SDPBackend(torch._fused_sdp_choice(qh, kh, vh,
+                                                 is_causal=sdpa_causal)).name
     fwd_t, bwd_t = [], []
-    for _ in range(TURNS):
-        fwd_t.append(time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=sdpa_causal), 50))
-        bwd_t.append(time_ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), doh, retain_graph=True), 50))
-    sdpa_fwd, sdpa_bwd = statistics.median(fwd_t), statistics.median(bwd_t)
+    if backend != "MATH":
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qh, kh, vh))
+        out = F.scaled_dot_product_attention(qg, kg, vg,
+                                             is_causal=sdpa_causal)
+        for _ in range(TURNS):
+            fwd_t.append(time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=sdpa_causal), 50))
+            bwd_t.append(time_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), doh, retain_graph=True), 50))
+        del out
+    sdpa_fwd = statistics.median(fwd_t) if fwd_t else None
+    sdpa_bwd = statistics.median(bwd_t) if bwd_t else None
     # no single library call computes dq or dk/dv alone: SDPA's whole
     # backward is the joint yardstick of the two backward kernels together
     res["flash_fwd"].update(library_ms=sdpa_fwd, library_ms_joint=None)
@@ -892,13 +964,18 @@ def timing(device, shape=MAIN, causal=True, q_off=0.0, k_off=0.0,
                          flops=flops, share_of_bound=ms / res[name]["ms"])
     return res, {"sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
                  "sdpa_fwd_ms_turns": fwd_t, "sdpa_bwd_ms_turns": bwd_t,
+                 "sdpa_backend": backend,
+                 "sdpa_null_reason": None if fwd_t else
+                 f"only SDPA's math backend takes d {d}, dv {dv}",
                  "busy_wait_cycles_per_ms": _SLEEP_CYCLES_PER_MS[0]}
 
 
 # the kernels' other dtypes and widths at the GPT-2 small token count
-# (B=8, T=1024, causal, H*d about 768): name -> (shape, dtype). d 60 runs
-# through the wrapper's zero-padded copy (16-bit rows of 120 bytes, which
-# the TMA cannot address); the d 64 row beside it reads in place.
+# (B=8, T=1024, causal, H*d about 768 or more): name -> (shape, dtype). d 60
+# runs through the wrapper's zero-padded copy (16-bit rows of 120 bytes,
+# which the TMA cannot address); the d 64 row beside it reads in place.
+# The rows from d 384 on run the wide kernels (d 288: two chunks, the
+# second 32 columns; 576/512: the absorbed MLA's widths).
 WIDTH_TIMINGS = {
     "f16_d64": (dict(b=8, t=1024, h=12, d=64), "float16"),
     "bf16_d96": (dict(b=8, t=1024, h=8, d=96), "bfloat16"),
@@ -906,6 +983,12 @@ WIDTH_TIMINGS = {
     "bf16_mla_d192_dv128": (dict(b=8, t=1024, h=4, d=192, dv=128),
                             "bfloat16"),
     "bf16_d60_padded_copy": (dict(b=8, t=1024, h=12, d=60), "bfloat16"),
+    "bf16_d384": (dict(b=8, t=1024, h=2, d=384), "bfloat16"),
+    "bf16_d768": (dict(b=8, t=1024, h=1, d=768), "bfloat16"),
+    "bf16_d288": (dict(b=8, t=1024, h=3, d=288), "bfloat16"),
+    "f16_d512": (dict(b=8, t=1024, h=2, d=512), "float16"),
+    "bf16_mla_d576_dv512": (dict(b=8, t=1024, h=4, d=576, dv=512),
+                            "bfloat16"),
 }
 
 
@@ -924,7 +1007,7 @@ def width_timings(device):
         res = {name: fa.kernel_info(name, dt, w) for name in NAMES}
         lines.append({"phase": "timing", "row": key, "shape": shape,
                       "dtype": dtype_name, "causal": True,
-                      "instantiated_width": w,
+                      "instantiated_width": width_key(w),
                       "reads_in_place": fa.reads_in_place(dt, d, dv),
                       "kernels": times, "resources": res, **sdpa})
         torch.cuda.empty_cache()
@@ -1123,12 +1206,14 @@ def train(device, profile_dir=None, profile=False):
 
 
 # GPT-2 small at the kernels' other dtypes and widths: (compute dtype,
-# heads, static loss scale); hidden 768 gives d 64, 96 and 256. fp16 runs
+# heads, static loss scale); hidden 768 gives d 64, 96, 256, and on the
+# wide kernels 384 and 768. fp16 runs
 # as fp16 training does, with its loss scaled: unscaled, the backward's
 # activation gradients (about 1e-6 to 1e-8 at 8,192 tokens) fall below
 # fp16's smallest normal, 6.1e-5, where it keeps few bits (``widths_grads``)
 WIDTH_RUNS = (("float16", 12, 2.0 ** 13), ("bfloat16", 8, 1.0),
-              ("bfloat16", 3, 1.0))
+              ("bfloat16", 3, 1.0), ("bfloat16", 2, 1.0),
+              ("bfloat16", 1, 1.0))
 # the flash run's loss against the dense route's, relative, at step 1 and
 # at steps 2-5, by dtype: the two round p (and ds) to the 16-bit type at
 # other places and sum in other orders, and AdamW steps carry the
@@ -1351,8 +1436,8 @@ def widths_phase(device, card):
         runs.append({
             "run": key, "dtype": dtype_name, "heads": heads,
             "head_dim": 768 // heads, "loss_scale": scale,
-            "instantiated_width": fa.kernel_width(768 // heads,
-                                                  768 // heads),
+            "instantiated_width": width_key(fa.kernel_width(768 // heads,
+                                                            768 // heads)),
             "losses": losses, "dense_losses": dense, "rel_err": rel,
             "loss_rtol": [first, later], "step1_grads": grads,
             "step1_grads_unscaled": unscaled,

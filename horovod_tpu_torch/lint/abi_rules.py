@@ -6,9 +6,12 @@ ABI is its kernels': the ``extern "C" int hvd_*`` entry points of
 ``ops/csrc/*.cu``, bound by ctypes through ``ops/_build.py``'s
 ``SIGNATURES`` (symbol -> library, argtypes) and ``SOURCES`` (library ->
 its one source file), with the dtype codes and instantiated head widths
-written twice: ``_KERNEL_DTYPES`` and ``_KERNEL_HEAD_DIMS`` in
-``ops/flash_attention.py``, and the ``HVD_FLASH_CASE`` lines of
-``HVD_FLASH_DISPATCH`` in ``csrc/flash_common.cuh``. A drift between the
+written twice: ``_KERNEL_DTYPES``, ``_KERNEL_HEAD_DIMS`` and the wide
+instantiation's head_dim code ``_KERNEL_WIDE`` in
+``ops/flash_attention.py``, and the ``HVD_FLASH_CASE`` and
+``HVD_FLASH_WIDE_CASE`` lines of ``HVD_FLASH_DISPATCH`` (the latter at
+``#define HVD_FLASH_WIDE``'s code) in ``csrc/flash_common.cuh``. A drift
+between the
 two sides shows only on the card, as a cudaErrorInvalidValue or an
 argument cut or shifted by ctypes. HVL104 reads both sides (a regex for
 the C side, ``ast`` for the Python side) and flags:
@@ -18,9 +21,9 @@ the C side, ``ast`` for the Python side) and flags:
 - a ``SIGNATURES`` entry that its library's file does not export;
 - an argtypes list whose length differs from the C parameter count;
 - a (dtype code, head width) case of ``_KERNEL_DTYPES`` x
-  ``_KERNEL_HEAD_DIMS`` that the dispatch lacks, a dispatch case the
-  Python side does not name, and a code whose C type is not its torch
-  dtype's.
+  (``_KERNEL_HEAD_DIMS`` and ``_KERNEL_WIDE``) that the dispatch lacks, a
+  dispatch case, narrow or wide, the Python side does not name, and a code
+  whose C type is not its torch dtype's.
 
 The reference's ABI-version literal has no counterpart: a library's file
 name carries the digest of its sources (``_build.library_path``), so a
@@ -42,6 +45,11 @@ _EXPORT_RE = re.compile(r'^\s*extern\s+"C"\s+int\s+(hvd_\w+)\s*\(',
 # one dispatch case: HVD_FLASH_CASE(code, C type, width, ...
 _CASE_RE = re.compile(r"HVD_FLASH_CASE\(\s*(\d+)\s*,\s*([\w:]+)\s*,\s*"
                       r"(\d+)\s*,")
+# one wide case: HVD_FLASH_WIDE_CASE(code, C type, ...; its head width is
+# the code that `#define HVD_FLASH_WIDE` gives
+_WIDE_CASE_RE = re.compile(r"HVD_FLASH_WIDE_CASE\(\s*(\d+)\s*,\s*"
+                           r"([\w:]+)\s*,")
+_WIDE_CODE_RE = re.compile(r"#define\s+HVD_FLASH_WIDE\s+(\d+)")
 # torch dtype name -> the C type its code instantiates (last component)
 C_TYPE = {"float32": "float", "bfloat16": "bf16", "float16": "f16"}
 
@@ -78,10 +86,18 @@ def parse_exports(text: str) -> Dict[str, Tuple[int, int]]:
 
 
 def parse_dispatch(text: str) -> Dict[Tuple[int, int], Tuple[str, int]]:
-    """{(dtype code, head width): (C type, line)} of the dispatch cases."""
-    return {(int(m.group(1)), int(m.group(3))):
-            (m.group(2).split("::")[-1], _line(text, m.start()))
-            for m in _CASE_RE.finditer(text)}
+    """{(dtype code, head width): (C type, line)} of the dispatch cases; a
+    wide case's head width is ``HVD_FLASH_WIDE``'s code (-1 if the text
+    does not define it)."""
+    cases = {(int(m.group(1)), int(m.group(3))):
+             (m.group(2).split("::")[-1], _line(text, m.start()))
+             for m in _CASE_RE.finditer(text)}
+    code = _WIDE_CODE_RE.search(text)
+    wide = int(code.group(1)) if code else -1
+    cases.update({(int(m.group(1)), wide):
+                  (m.group(2).split("::")[-1], _line(text, m.start()))
+                  for m in _WIDE_CASE_RE.finditer(text)})
+    return cases
 
 
 def _assigned(tree: ast.AST, name: str) -> Optional[ast.Assign]:
@@ -116,7 +132,8 @@ def parse_build(tree: ast.AST):
 
 def parse_kernel_cases(tree: ast.AST):
     """(``_KERNEL_DTYPES`` {torch dtype name: code}, its line,
-    ``_KERNEL_HEAD_DIMS`` widths, its line) of ``flash_attention.py``."""
+    ``_KERNEL_HEAD_DIMS`` widths, its line, ``_KERNEL_WIDE``'s code or
+    None, its line) of ``flash_attention.py``."""
     dtypes: Dict[str, int] = {}
     dtypes_line = widths_line = 1
     node = _assigned(tree, "_KERNEL_DTYPES")
@@ -131,7 +148,11 @@ def parse_kernel_cases(tree: ast.AST):
         widths_line = node.lineno
         widths = [e.value for e in node.value.elts
                   if isinstance(e, ast.Constant)]
-    return dtypes, dtypes_line, widths, widths_line
+    wide, wide_line = None, widths_line
+    node = _assigned(tree, "_KERNEL_WIDE")
+    if node is not None and isinstance(node.value, ast.Constant):
+        wide, wide_line = node.value.value, node.lineno
+    return dtypes, dtypes_line, widths, widths_line, wide, wide_line
 
 
 def _parse_py(rep: Reporter, path: Path):
@@ -193,20 +214,22 @@ def check_kernel_abi(rep: Reporter, ops_dir: Path) -> None:
     k_fr, k_tree = _parse_py(rep, kernels_py)
     if k_tree is None:
         return
-    dtypes, dtypes_line, widths, widths_line = parse_kernel_cases(k_tree)
-    named = {(code, w) for code in dtypes.values() for w in widths}
+    dtypes, dtypes_line, widths, widths_line, wide, wide_line = \
+        parse_kernel_cases(k_tree)
+    named = {(code, w) for code in dtypes.values()
+             for w in widths + ([] if wide is None else [wide])}
     for code, w in sorted(named - set(dispatch)):
-        k_fr.add("HVL104", widths_line,
-                 f"_KERNEL_DTYPES x _KERNEL_HEAD_DIMS names (dtype {code}, "
-                 f"head_dim {w}), which HVD_FLASH_DISPATCH lacks — the "
-                 "launch would return cudaErrorInvalidValue")
+        k_fr.add("HVL104", wide_line if w == wide else widths_line,
+                 f"_KERNEL_DTYPES x _KERNEL_HEAD_DIMS/_KERNEL_WIDE names "
+                 f"(dtype {code}, head_dim {w}), which HVD_FLASH_DISPATCH "
+                 "lacks — the launch would return cudaErrorInvalidValue")
     for (code, w) in sorted(set(dispatch) - named):
         _, line, path = dispatch[(code, w)]
         rep.scan_file(path).add(
             "HVL104", line,
             f"HVD_FLASH_DISPATCH instantiates (dtype {code}, head_dim {w}), "
-            f"which _KERNEL_DTYPES x _KERNEL_HEAD_DIMS in {kernels_py.name} "
-            "does not name")
+            f"which _KERNEL_DTYPES x _KERNEL_HEAD_DIMS/_KERNEL_WIDE in "
+            f"{kernels_py.name} does not name")
     for name, code in sorted(dtypes.items()):
         want = C_TYPE.get(name)
         for (c, w), (ctype, line, path) in sorted(dispatch.items()):

@@ -63,6 +63,16 @@
 //
 // Widths: q/k/dq/dk are d wide and v/do/dv dv wide, each at most the
 // instantiated D; the columns past them read as zeros (flash_common.cuh).
+//
+// Wide (any d and dv; *_wide_sm90<T> and the fp32 *_wide_kernel): a block
+// owns one WIDE_C-column chunk of one output, picked by the grid's z, and
+// streams the reductions over d and dv in WIDE_C-column chunks: S over
+// q's and k's d-chunks, dP over do's and v's dv-chunks. dq: z runs over
+// dq's d-chunks; per k tile, S and dP, then dQ_z += dS.K_z on k's chunk z.
+// dk/dv: z runs over dV's dv-chunks, then dK's d-chunks (the SPLIT above,
+// generalised); per q tile, S^T, and for dK also dP^T, then dV_z +=
+// P^T.dO_z or dK_z += dS^T.Q_z. Each block recomputes the scores its
+// chunk needs.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -116,8 +126,8 @@ __global__ void __launch_bounds__(THREADS)
   float* sDS = reinterpret_cast<float*>(smem + Sm::DS);
   float* sDQ = reinterpret_cast<float*>(smem + Sm::DQ);
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BMF;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * BMF;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t rs_qk = (size_t)H * d, rs_v = (size_t)H * dv;
   const size_t q_row = (size_t)b * Tq * H + h;
@@ -386,8 +396,8 @@ __global__ void __launch_bounds__(THREADS)
   float* sDK = reinterpret_cast<float*>(smem + Sm::DK);
   float* sDV = reinterpret_cast<float*>(smem + Sm::DV);
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BMF;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BMF;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t rs_qk = (size_t)H * d, rs_v = (size_t)H * dvw;
   const size_t q_row = (size_t)b * Tq * H + h;
@@ -682,6 +692,565 @@ __global__ void __launch_bounds__(sm90::WG)
   }
 }
 
+// ---- wide: any d and dv, the outputs in WIDE_C-column chunks over z ------
+
+// dq, fp32: the d 256 kernel's layout, each tile holding one chunk.
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dq_wide_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ corr,
+                             float* __restrict__ dq, int H, int Tq, int Tk,
+                             int d, int dv, int causal, float scale,
+                             float q_off, float k_off) {
+  constexpr int C = WIDE_C;
+  using Sm = DqSmem<C>;
+  constexpr int BN = Sm::BN, BMF = Sm::BMF, WR = Sm::WR, LPR = Sm::LPR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem + Sm::Q);
+  float* sDO = reinterpret_cast<float*>(smem + Sm::DO);
+  float* sK = reinterpret_cast<float*>(smem + Sm::K);
+  float* sV = reinterpret_cast<float*>(smem + Sm::V);
+  float* sS = reinterpret_cast<float*>(smem + Sm::S);
+  float* sDP = reinterpret_cast<float*>(smem + Sm::DP);
+  float* sDS = reinterpret_cast<float*>(smem + Sm::DS);
+  float* sDQ = reinterpret_cast<float*>(smem + Sm::DQ);
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * BMF, c_o = blockIdx.z * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t rs_qk = (size_t)H * d, rs_v = (size_t)H * dv;
+  const float* qb = q + ((size_t)b * Tq * H + h) * d;
+  const float* dob = dout + ((size_t)b * Tq * H + h) * dv;
+  const float* kb = k + ((size_t)b * Tk * H + h) * d;
+  const float* vb = v + ((size_t)b * Tk * H + h) * dv;
+  const int nd = wide_chunks(d), ndv = wide_chunks(dv);
+
+  for (int i = threadIdx.x; i < BMF * Sm::LDO; i += THREADS) sDQ[i] = 0.f;
+  const int r = lane / LPR, part = lane % LPR;
+  const int row = warp * WR + r;
+  const int t = q0 + row;
+  const float q_pos = q_off + (float)t;
+  const float lse_r = t < Tq ? lse[(size_t)bh * Tq + t] : NEG_INF;
+  const float corr_r = t < Tq ? corr[(size_t)bh * Tq + t] : 0.f;
+  const bool live = lse_r > NEG_INF / 2;
+  const float* wQ = sQ + warp * WR * Sm::LDE;
+  const float* wDO = sDO + warp * WR * Sm::LDE;
+  float* wS = sS + warp * WR * Sm::LDS;
+  float* wDP = sDP + warp * WR * Sm::LDS;
+  float* wDS = sDS + warp * WR * Sm::LDP;
+  float* wDQ = sDQ + warp * WR * Sm::LDO;
+
+  int num_k = (Tk + BN - 1) / BN;
+  if (causal) num_k = causal_num_k(q_off, k_off, q0, BN, num_k, BMF);
+
+  for (int kt = 0; kt < num_k; ++kt) {
+    const int k0 = kt * BN;
+    for (int c = 0; c < nd; ++c) {  // s = q . k^T over d
+      __syncthreads();
+      load_rows<BMF, C, Sm::LDE>(sQ, qb + c * C, q0, Tq, rs_qk, d - c * C);
+      load_rows<BN, C, Sm::LDE>(sK, kb + c * C, k0, Tk, rs_qk, d - c * C);
+      __syncthreads();
+      if (c == 0)
+        warp_mm_abT<BN, C, Sm::LDE, Sm::LDE, Sm::LDS, WR>(wS, wQ, sK);
+      else
+        warp_mm_abT<BN, C, Sm::LDE, Sm::LDE, Sm::LDS, WR, true>(wS, wQ, sK);
+    }
+    for (int c = 0; c < ndv; ++c) {  // dp = do . v^T over dv
+      __syncthreads();
+      load_rows<BMF, C, Sm::LDE>(sDO, dob + c * C, q0, Tq, rs_v, dv - c * C);
+      load_rows<BN, C, Sm::LDE>(sV, vb + c * C, k0, Tk, rs_v, dv - c * C);
+      __syncthreads();
+      if (c == 0)
+        warp_mm_abT<BN, C, Sm::LDE, Sm::LDE, Sm::LDS, WR>(wDP, wDO, sV);
+      else
+        warp_mm_abT<BN, C, Sm::LDE, Sm::LDE, Sm::LDS, WR, true>(wDP, wDO,
+                                                                 sV);
+    }
+    __syncthreads();
+    load_rows<BN, C, Sm::LDE>(sK, kb + c_o, k0, Tk, rs_qk, d - c_o);
+    __syncthreads();
+    for (int c = part; c < BN; c += LPR) {
+      const int kc = k0 + c;
+      float p = 0.f;
+      if (live && kc < Tk && !(causal && !(q_pos >= k_off + (float)kc)))
+        p = expf(wS[r * Sm::LDS + c] * scale - lse_r);
+      wDS[r * Sm::LDP + c] = p * (wDP[r * Sm::LDS + c] + corr_r) * scale;
+    }
+    __syncwarp();
+    warp_mm_ab_acc<C, BN, Sm::LDP, Sm::LDE, Sm::LDO, WR>(wDQ, wDS, sK);
+  }
+  __syncthreads();
+  store_rows<BMF, Sm::LDO>(dq + ((size_t)b * Tq * H + h) * d + c_o, sDQ, q0,
+                           Tq, rs_qk, min(C, d - c_o), nullptr);
+}
+
+// dk/dv, fp32: the d 256 kernel's layout, each tile holding one chunk and
+// sDK the one accumulator (z < chunks of dv: dV's chunk z; else dK's).
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ corr,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              int H, int Tq, int Tk, int d, int dvw,
+                              int causal, float scale, float q_off,
+                              float k_off) {
+  constexpr int C = WIDE_C;
+  using Sm = DkvSmem<C>;
+  constexpr int BN = Sm::BN, BMF = Sm::BMF, WR = Sm::WR, LPR = Sm::LPR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem + Sm::K);
+  float* sV = reinterpret_cast<float*>(smem + Sm::V);
+  float* sQ = reinterpret_cast<float*>(smem + Sm::Q);
+  float* sDO = reinterpret_cast<float*>(smem + Sm::DO);
+  float* sLse = reinterpret_cast<float*>(smem + Sm::LSE);
+  float* sCorr = reinterpret_cast<float*>(smem + Sm::CORR);
+  float* sS = reinterpret_cast<float*>(smem + Sm::S);
+  float* sDP = reinterpret_cast<float*>(smem + Sm::DP);
+  float* sP = reinterpret_cast<float*>(smem + Sm::P);
+  float* sAcc = reinterpret_cast<float*>(smem + Sm::DK);
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BMF;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nd = wide_chunks(d), ndv = wide_chunks(dvw);
+  const int z = blockIdx.z;
+  const bool want_dk = z >= ndv;
+  const int c_o = (want_dk ? z - ndv : z) * C;
+  const size_t rs_qk = (size_t)H * d, rs_v = (size_t)H * dvw;
+  const float* qb = q + ((size_t)b * Tq * H + h) * d;
+  const float* dob = dout + ((size_t)b * Tq * H + h) * dvw;
+  const float* kb = k + ((size_t)b * Tk * H + h) * d;
+  const float* vb = v + ((size_t)b * Tk * H + h) * dvw;
+
+  for (int i = threadIdx.x; i < BMF * Sm::LDO; i += THREADS) sAcc[i] = 0.f;
+  const int r = lane / LPR, part = lane % LPR;
+  const float k_pos = k_off + (float)(k0 + warp * WR + r);
+  const float* wK = sK + warp * WR * Sm::LDE;
+  const float* wV = sV + warp * WR * Sm::LDE;
+  float* wS = sS + warp * WR * Sm::LDS;
+  float* wDP = sDP + warp * WR * Sm::LDS;
+  float* wP = sP + warp * WR * Sm::LDP;
+  float* wAcc = sAcc + warp * WR * Sm::LDO;
+
+  const int num_q = (Tq + BN - 1) / BN;
+  const int start = causal ? dkv_start(q_off, k_off, k0, BN, num_q) : 0;
+  const float* lse_bh = lse + (size_t)bh * Tq;
+  const float* corr_bh = corr + (size_t)bh * Tq;
+
+  for (int qt = start; qt < num_q; ++qt) {
+    const int q0 = qt * BN;
+    __syncthreads();  // the last tile's readers are done with sLse/sCorr
+    for (int i = threadIdx.x; i < BN; i += THREADS) {
+      const bool in = q0 + i < Tq;
+      sLse[i] = in ? lse_bh[q0 + i] : NEG_INF;
+      sCorr[i] = in ? corr_bh[q0 + i] : 0.f;
+    }
+    for (int c = 0; c < nd; ++c) {  // s^T = k . q^T over d
+      __syncthreads();
+      load_rows<BMF, C, Sm::LDE>(sK, kb + c * C, k0, Tk, rs_qk, d - c * C);
+      load_rows<BN, C, Sm::LDE>(sQ, qb + c * C, q0, Tq, rs_qk, d - c * C);
+      __syncthreads();
+      if (c == 0)
+        warp_mm_abT<BN, C, Sm::LDE, Sm::LDE, Sm::LDS, WR>(wS, wK, sQ);
+      else
+        warp_mm_abT<BN, C, Sm::LDE, Sm::LDE, Sm::LDS, WR, true>(wS, wK, sQ);
+    }
+    for (int c = 0; want_dk && c < ndv; ++c) {  // dp^T = v . do^T over dv
+      __syncthreads();
+      load_rows<BMF, C, Sm::LDE>(sV, vb + c * C, k0, Tk, rs_v, dvw - c * C);
+      load_rows<BN, C, Sm::LDE>(sDO, dob + c * C, q0, Tq, rs_v,
+                                dvw - c * C);
+      __syncthreads();
+      if (c == 0)
+        warp_mm_abT<BN, C, Sm::LDE, Sm::LDE, Sm::LDS, WR>(wDP, wV, sDO);
+      else
+        warp_mm_abT<BN, C, Sm::LDE, Sm::LDE, Sm::LDS, WR, true>(wDP, wV,
+                                                                 sDO);
+    }
+    // the other side's chunk z: q's for dK, do's for dV
+    float* sB = want_dk ? sQ : sDO;
+    __syncthreads();
+    if (want_dk)
+      load_rows<BN, C, Sm::LDE>(sB, qb + c_o, q0, Tq, rs_qk, d - c_o);
+    else
+      load_rows<BN, C, Sm::LDE>(sB, dob + c_o, q0, Tq, rs_v, dvw - c_o);
+    __syncthreads();
+    for (int c = part; c < BN; c += LPR) {  // p for dV, ds for dK
+      const float lse_c = sLse[c];
+      float p = 0.f;
+      if (lse_c > NEG_INF / 2 &&
+          !(causal && !(q_off + (float)(q0 + c) >= k_pos)))
+        p = expf(wS[r * Sm::LDS + c] * scale - lse_c);
+      wP[r * Sm::LDP + c] =
+          want_dk ? p * (wDP[r * Sm::LDS + c] + sCorr[c]) * scale : p;
+    }
+    __syncwarp();
+    warp_mm_ab_acc<C, BN, Sm::LDP, Sm::LDE, Sm::LDO, WR>(wAcc, wP, sB);
+  }
+  __syncthreads();
+  if (want_dk)
+    store_rows<BMF, Sm::LDO>(dk + ((size_t)b * Tk * H + h) * d + c_o, sAcc,
+                             k0, Tk, rs_qk, min(C, d - c_o), nullptr);
+  else
+    store_rows<BMF, Sm::LDO>(dv + ((size_t)b * Tk * H + h) * dvw + c_o, sAcc,
+                             k0, Tk, rs_v, min(C, dvw - c_o), nullptr);
+}
+
+// dq, bf16 / fp16: per k tile, nd steps of (q, k) chunks into S, ndv of
+// (do, v) chunks into dP, then one of k's chunk z into dQ
+// (sm90::WideSm90's ring).
+template <typename T>
+__global__ void __launch_bounds__(sm90::WG)
+    flash_bwd_dq_wide_sm90(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ corr,
+                           T* __restrict__ dq, int H, int Tq, int Tk, int d,
+                           int dv, int causal, float scale, float q_off,
+                           float k_off) {
+  using namespace sm90;
+  using L = WideSm90;
+  constexpr int BN = L::BN, C = L::C;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM, c_o = blockIdx.z * C;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2), c2 = (lane & 3) * 2;
+
+  float q_pos[2], lse2[2], corr_r[2];
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + r0 + 8 * i;
+    const float l = t < Tq ? lse[(size_t)bh * Tq + t] : NEG_INF;
+    q_pos[i] = q_off + (float)t;
+    live[i] = l > NEG_INF / 2;
+    lse2[i] = l * LOG2E;
+    corr_r[i] = t < Tq ? corr[(size_t)bh * Tq + t] : 0.f;
+  }
+
+  int num_k = (Tk + BN - 1) / BN;
+  if (causal) num_k = causal_num_k(q_off, k_off, q0, BN, num_k);
+  const int nd = wide_chunks(d), ndv = wide_chunks(dv);
+  const int spt = nd + ndv + 1, total = num_k * spt;
+  auto load = [&](int it) {
+    const int kt = it / spt, j = it - kt * spt;
+    if (j < nd)  // S's chunk j
+      wide_load(smem, bar, it, &map_q, q0, &map_k, kt * BN, j * C, h, b);
+    else if (j < nd + ndv)  // dP's chunk j - nd
+      wide_load(smem, bar, it, &map_do, q0, &map_v, kt * BN, (j - nd) * C,
+                h, b);
+    else  // dQ's: k's chunk z
+      wide_load(smem, bar, it, nullptr, 0, &map_k, kt * BN, c_o, h, b);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < L::STAGES; ++i) mbar_init(&bar[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && total > 0) load(0);
+
+  float acc_dq[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) acc_dq[i] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+  int it = 0;
+  auto next = [&]() {
+    if (tid == 0 && it + 1 < total) load(it + 1);
+    mbar_wait(&bar[it & 1], (it >> 1) & 1);
+    return smem_u32(smem + (it & 1) * L::STAGE);
+  };
+
+  for (int kt = 0; kt < num_k; ++kt) {
+    const int k0 = kt * BN;
+    float acc_s[BN / 2], acc_dp[BN / 2];
+    for (int j = 0; j < nd; ++j, ++it) {  // S = Q . K^T over d
+      wide_ss<T>(acc_s, next(), j == 0);
+      __syncthreads();
+    }
+    for (int j = 0; j < ndv; ++j, ++it) {  // dP = dO . V^T over dv
+      wide_ss<T>(acc_dp, next(), j == 0);
+      __syncthreads();
+    }
+
+    // the narrow kernel's p and ds = p * (dp + corr) * scale
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, col = k0 + 8 * j + c2 + (e & 1);
+        float p = 0.f;
+        if (live[i] && col < Tk &&
+            !(causal && !(q_pos[i] >= k_off + (float)col)))
+          p = exp2f(fmaf(acc_s[4 * j + e], scale_log2, -lse2[i]));
+        acc_dp[4 * j + e] = p * (acc_dp[4 * j + e] + corr_r[i]) * scale;
+      }
+
+    // dQ_z += dS . K_z (ds cast to k's dtype)
+    uint32_t dsf[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) to_a_frag<T>(dsf[kk], acc_dp, kk);
+    wide_rs<T>(acc_dq, dsf, next());
+    __syncthreads();
+    ++it;
+  }
+
+  const size_t rs = (size_t)H * d;
+  T* dqb = dq + ((size_t)b * Tq * H + h) * d + c_o;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + r0 + 8 * i;
+    if (t >= Tq) continue;
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+      if (c_o + 8 * j + c2 < d)  // d is even: a pair is wholly in or out
+        *reinterpret_cast<uint32_t*>(dqb + (size_t)t * rs + 8 * j + c2) =
+            pack2<T>(acc_dq[4 * j + 2 * i], acc_dq[4 * j + 2 * i + 1]);
+  }
+}
+
+// dk/dv, bf16 / fp16: per q tile, nd steps of (k, q) chunks into S^T, for
+// dK also ndv of (v, do) chunks into dP^T, then one of do's chunk z (dV)
+// or q's (dK) into the block's accumulator.
+template <typename T>
+__global__ void __launch_bounds__(sm90::WG)
+    flash_bwd_dkv_wide_sm90(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const __grid_constant__ CUtensorMap map_do,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ corr,
+                            T* __restrict__ dk, T* __restrict__ dv, int H,
+                            int Tq, int Tk, int d, int dvw, int causal,
+                            float scale, float q_off, float k_off) {
+  using namespace sm90;
+  using L = WideSm90;
+  constexpr int BN = L::BN, C = L::C;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  float* sRows = reinterpret_cast<float*>(smem + L::ROWS);  // lse, corr
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2), c2 = (lane & 3) * 2;
+  const float k_pos[2] = {k_off + (float)(k0 + r0),
+                          k_off + (float)(k0 + r0 + 8)};
+  const int nd = wide_chunks(d), ndv = wide_chunks(dvw);
+  const int z = blockIdx.z;
+  const bool want_dk = z >= ndv;
+  const int c_o = (want_dk ? z - ndv : z) * C;
+
+  const int num_q = (Tq + BN - 1) / BN;
+  const int start = causal ? dkv_start(q_off, k_off, k0, BN, num_q) : 0;
+  const int spt = nd + (want_dk ? ndv : 0) + 1;
+  const int total = (num_q - start) * spt;
+  const float* lse_bh = lse + (size_t)bh * Tq;
+  const float* corr_bh = corr + (size_t)bh * Tq;
+  auto load = [&](int it) {
+    const int qt = start + it / spt, j = it % spt;
+    if (j < nd)  // S^T's chunk j
+      wide_load(smem, bar, it, &map_k, k0, &map_q, qt * BN, j * C, h, b);
+    else if (j < spt - 1)  // dP^T's chunk j - nd
+      wide_load(smem, bar, it, &map_v, k0, &map_do, qt * BN, (j - nd) * C,
+                h, b);
+    else  // the accumulator's: q's (dK) or do's (dV) chunk z
+      wide_load(smem, bar, it, nullptr, 0, want_dk ? &map_q : &map_do,
+                qt * BN, c_o, h, b);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < L::STAGES; ++i) mbar_init(&bar[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && total > 0) load(0);
+
+  float acc[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+  float acc_s[BN / 2], acc_dp[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc_dp[i] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+  int it = 0;
+  auto next = [&]() {
+    if (tid == 0 && it + 1 < total) load(it + 1);
+    mbar_wait(&bar[it & 1], (it >> 1) & 1);
+    return smem_u32(smem + (it & 1) * L::STAGE);
+  };
+
+  for (int qt = start; qt < num_q; ++qt) {
+    const int q0 = qt * BN;
+    // this tile's lse and corr; the last tile's readers passed the
+    // __syncthreads ending its last step, and the first step's below
+    // publishes them
+    if (tid < BN) {
+      const int t = q0 + tid;
+      sRows[tid] = t < Tq ? lse_bh[t] : NEG_INF;
+      sRows[BN + tid] = t < Tq ? corr_bh[t] : 0.f;
+    }
+    for (int j = 0; j < nd; ++j, ++it) {  // S^T = K . Q^T over d
+      wide_ss<T>(acc_s, next(), j == 0);
+      __syncthreads();
+    }
+    for (int j = 0; want_dk && j < ndv; ++j, ++it) {  // dP^T = V . dO^T
+      wide_ss<T>(acc_dp, next(), j == 0);
+      __syncthreads();
+    }
+
+    // p for dV, ds = p * (dp + corr) * scale for dK, into acc_s
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + c2 + (e & 1);
+        const float lse_c = sRows[c];
+        float p = 0.f;
+        if (lse_c > NEG_INF / 2 &&
+            !(causal && !(q_off + (float)(q0 + c) >= k_pos[e >> 1])))
+          p = exp2f(fmaf(acc_s[4 * j + e], scale_log2, -lse_c * LOG2E));
+        if (want_dk) p = p * (acc_dp[4 * j + e] + sRows[BN + c]) * scale;
+        acc_s[4 * j + e] = p;
+      }
+    uint32_t f[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) to_a_frag<T>(f[kk], acc_s, kk);
+    wide_rs<T>(acc, f, next());
+    __syncthreads();
+    ++it;
+  }
+
+  T* out = want_dk ? dk : dv;
+  const int w = want_dk ? d : dvw;
+  const size_t base = ((size_t)b * Tk * H + h) * w + c_o;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = k0 + r0 + 8 * i;
+    if (t >= Tk) continue;
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+      if (c_o + 8 * j + c2 < w)  // widths are even: pairs wholly in or out
+        *reinterpret_cast<uint32_t*>(out + base + (size_t)t * H * w + 8 * j +
+                                     c2) =
+            pack2<T>(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* corr, void* dq, int B, int H, int Tq,
+                           int Tk, int d, int dv, int causal, float scale,
+                           float q_off, float k_off, cudaStream_t stream) {
+  if (d < 1 || dv < 1) return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, float>::value) {
+    using Sm = DqSmem<WIDE_C>;
+    cudaError_t err = prepare(flash_bwd_dq_wide_kernel, Sm::BYTES);
+    if (err != cudaSuccess) return err;
+    dim3 grid(B * H, (Tq + Sm::BMF - 1) / Sm::BMF, wide_chunks(d));
+    flash_bwd_dq_wide_kernel<<<grid, THREADS, Sm::BYTES, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(corr),
+        static_cast<float*>(dq), H, Tq, Tk, d, dv, causal, scale, q_off,
+        k_off);
+  } else {
+    using L = sm90::WideSm90;
+    CUtensorMap mq, mk, mv, mdo;
+    cudaError_t err = sm90::make_map<T>(&mq, q, B, Tq, H, d, L::C, BM);
+    if (err == cudaSuccess)
+      err = sm90::make_map<T>(&mdo, dout, B, Tq, H, dv, L::C, BM);
+    if (err == cudaSuccess)
+      err = sm90::make_map<T>(&mk, k, B, Tk, H, d, L::C, L::BN);
+    if (err == cudaSuccess)
+      err = sm90::make_map<T>(&mv, v, B, Tk, H, dv, L::C, L::BN);
+    if (err == cudaSuccess)
+      err = prepare(flash_bwd_dq_wide_sm90<T>, L::BYTES);
+    if (err != cudaSuccess) return err;
+    dim3 grid(B * H, (Tq + BM - 1) / BM, wide_chunks(d));
+    flash_bwd_dq_wide_sm90<T><<<grid, sm90::WG, L::BYTES, stream>>>(
+        mq, mk, mv, mdo, static_cast<const float*>(lse),
+        static_cast<const float*>(corr), static_cast<T*>(dq), H, Tq, Tk, d,
+        dv, causal, scale, q_off, k_off);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* corr, void* dk, void* dv, int B,
+                            int H, int Tq, int Tk, int d, int dvw, int causal,
+                            float scale, float q_off, float k_off,
+                            cudaStream_t stream) {
+  if (d < 1 || dvw < 1) return cudaErrorInvalidValue;
+  const int nz = wide_chunks(dvw) + wide_chunks(d);
+  if constexpr (std::is_same<T, float>::value) {
+    using Sm = DkvSmem<WIDE_C>;
+    cudaError_t err = prepare(flash_bwd_dkv_wide_kernel, Sm::BYTES);
+    if (err != cudaSuccess) return err;
+    dim3 grid(B * H, (Tk + Sm::BMF - 1) / Sm::BMF, nz);
+    flash_bwd_dkv_wide_kernel<<<grid, THREADS, Sm::BYTES, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(corr),
+        static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, d, dvw,
+        causal, scale, q_off, k_off);
+  } else {
+    using L = sm90::WideSm90;
+    CUtensorMap mq, mk, mv, mdo;
+    cudaError_t err = sm90::make_map<T>(&mq, q, B, Tq, H, d, L::C, L::BN);
+    if (err == cudaSuccess)
+      err = sm90::make_map<T>(&mdo, dout, B, Tq, H, dvw, L::C, L::BN);
+    if (err == cudaSuccess)
+      err = sm90::make_map<T>(&mk, k, B, Tk, H, d, L::C, BM);
+    if (err == cudaSuccess)
+      err = sm90::make_map<T>(&mv, v, B, Tk, H, dvw, L::C, BM);
+    if (err == cudaSuccess)
+      err = prepare(flash_bwd_dkv_wide_sm90<T>, L::BYTES);
+    if (err != cudaSuccess) return err;
+    dim3 grid(B * H, (Tk + BM - 1) / BM, nz);
+    flash_bwd_dkv_wide_sm90<T><<<grid, sm90::WG, L::BYTES, stream>>>(
+        mq, mk, mv, mdo, static_cast<const float*>(lse),
+        static_cast<const float*>(corr), static_cast<T*>(dk),
+        static_cast<T*>(dv), H, Tq, Tk, d, dvw, causal, scale, q_off, k_off);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int info_bwd_wide(int which, int* info) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == 0)
+      return kernel_info(flash_bwd_dq_wide_kernel, THREADS,
+                         DqSmem<WIDE_C>::BYTES, info);
+    return kernel_info(flash_bwd_dkv_wide_kernel, THREADS,
+                       DkvSmem<WIDE_C>::BYTES, info);
+  } else {
+    if (which == 0)
+      return kernel_info(flash_bwd_dq_wide_sm90<T>, sm90::WG,
+                         sm90::WideSm90::BYTES, info);
+    return kernel_info(flash_bwd_dkv_wide_sm90<T>, sm90::WG,
+                       sm90::WideSm90::BYTES, info);
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* corr,
@@ -694,7 +1263,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
     constexpr int bytes = Sm::BYTES;
     cudaError_t err = prepare(flash_bwd_dq_kernel<D>, bytes);
     if (err != cudaSuccess) return err;
-    dim3 grid((Tq + Sm::BMF - 1) / Sm::BMF, B * H);
+    dim3 grid(B * H, (Tq + Sm::BMF - 1) / Sm::BMF);
     flash_bwd_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -732,7 +1301,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   if (d < 1 || dvw < 1 || d > D || dvw > D) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
     using Sm = DkvSmem<D>;
-    dim3 grid((Tk + Sm::BMF - 1) / Sm::BMF, B * H);
+    dim3 grid(B * H, (Tk + Sm::BMF - 1) / Sm::BMF);
     constexpr int bytes = Sm::BYTES;
     cudaError_t err = prepare(flash_bwd_dkv_kernel<D>, bytes);
     if (err != cudaSuccess) return err;
@@ -788,11 +1357,12 @@ int info_bwd(int which, int* info) {
 extern "C" int hvd_flash_bwd_info(int which, int dtype, int head_dim,
                                   int* info) {
   using hvdflash::info_bwd;
+  using hvdflash::info_bwd_wide;
   HVD_FLASH_DISPATCH(dtype, head_dim, info_bwd, which, info);
 }
 
-// head_dim: the instantiated width D; d and dv: the widths of q/k/dq and
-// of v/do, each at most D.
+// head_dim: the instantiated width D, or HVD_FLASH_WIDE (any d and dv);
+// d and dv: the widths of q/k/dq and of v/do, each at most D.
 extern "C" int hvd_flash_bwd_dq(int dtype, int head_dim, int d, int dv,
                                 const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
@@ -800,13 +1370,14 @@ extern "C" int hvd_flash_bwd_dq(int dtype, int head_dim, int d, int dv,
                                 int Tq, int Tk, int causal, float scale,
                                 float q_off, float k_off, void* stream) {
   using hvdflash::launch_dq;
+  using hvdflash::launch_dq_wide;
   HVD_FLASH_DISPATCH(dtype, head_dim, launch_dq, q, k, v, dout, lse, corr,
                      dq, B, H, Tq, Tk, d, dv, causal, scale, q_off, k_off,
                      static_cast<cudaStream_t>(stream));
 }
 
-// head_dim: the instantiated width D; d and dv: the widths of q/k/dk and
-// of v/do/dv, each at most D.
+// head_dim: the instantiated width D, or HVD_FLASH_WIDE (any d and dv);
+// d and dv: the widths of q/k/dk and of v/do/dv, each at most D.
 extern "C" int hvd_flash_bwd_dkv(int dtype, int head_dim, int d, int dv,
                                  const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
@@ -815,6 +1386,7 @@ extern "C" int hvd_flash_bwd_dkv(int dtype, int head_dim, int d, int dv,
                                  float scale, float q_off, float k_off,
                                  void* stream) {
   using hvdflash::launch_dkv;
+  using hvdflash::launch_dkv_wide;
   HVD_FLASH_DISPATCH(dtype, head_dim, launch_dkv, q, k, v, dout, lse, corr,
                      dk, dvp, B, H, Tq, Tk, d, dv, causal, scale, q_off,
                      k_off, static_cast<cudaStream_t>(stream));

@@ -12,7 +12,10 @@
 // 256} and takes q/k of any width d <= D and v/do/o of any width dv <= D:
 // the columns from d (or dv) up to D read as zeros, which change neither
 // q.k^T nor the log-sum-exp, and are never written. The wrapper picks the
-// smallest D >= max(d, dv).
+// smallest D >= max(d, dv). Above 256 the wide instantiation of each dtype
+// takes any d and dv: a block owns one chunk of WIDE_C columns of its
+// output, picked by blockIdx.z, and streams the products' reductions over
+// d and dv in chunks of WIDE_C columns (wide_chunks).
 //
 // Types: fp32 stays full fp32 (scalar FMA, no TF32), which is what the
 // reference's fp32 tolerances need; the fp32 kernels use the helpers below.
@@ -45,6 +48,13 @@ constexpr int F32_PAD = 1;
 __host__ __device__ constexpr int f32_bm(int d) { return d > 128 ? 32 : 64; }
 
 __host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
+
+// The wide kernels' column chunk (the register shape of the d 256
+// instantiations), and the chunks of a width w.
+constexpr int WIDE_C = 256;
+__host__ __device__ constexpr int wide_chunks(int w) {
+  return (w + WIDE_C - 1) / WIDE_C;
+}
 
 // Copy rows [row0, row0 + ROWS) of one (batch, head) slice into shared
 // memory (row stride LD, D columns); rows at or past t_len and columns at
@@ -83,12 +93,13 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
 }
 
 // ---- warp-level tile products on shared memory ---------------------------
-// warp_mm_abT: C[WR x N] = A[WR x K] . B[N x K]^T   (C fp32, overwritten)
+// warp_mm_abT: C[WR x N] = A[WR x K] . B[N x K]^T   (C fp32, overwritten;
+//              accumulated with ACC)
 // warp_mm_ab_acc: C[WR x N] += A[WR x K] . B[K x N] (C fp32, accumulated)
 // A and B are row-major element tiles; LDx are row strides in elements; WR
 // is the warp's rows.
 
-template <int N, int K, int LDA, int LDB, int LDC, int WR>
+template <int N, int K, int LDA, int LDB, int LDC, int WR, bool ACC = false>
 __device__ __forceinline__ void warp_mm_abT(float* C, const float* A,
                                             const float* B) {
   static_assert(N % 32 == 0, "N must be a multiple of 32");
@@ -98,7 +109,8 @@ __device__ __forceinline__ void warp_mm_abT(float* C, const float* A,
 #pragma unroll
   for (int r = 0; r < WR; ++r)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < NC; ++j)
+      acc[r][j] = ACC ? C[r * LDC + lane + 32 * j] : 0.f;
 #pragma unroll 4
   for (int kk = 0; kk < K; ++kk) {
     float b[NC];
@@ -230,10 +242,16 @@ __host__ int kernel_info(Kernel kernel, int threads, int smem_bytes,
 }  // namespace hvdflash
 
 // Dispatch on (dtype, head_dim): dtype 0 = fp32, 1 = bf16, 2 = fp16;
-// head_dim is the instantiated width D (ops/flash_attention.py's
-// _KERNEL_DTYPES and _KERNEL_HEAD_DIMS name the same cases, lint HVL104).
+// head_dim is the instantiated width D, or HVD_FLASH_WIDE for the wide
+// instantiation, which FN's counterpart FN##_wide<T> launches
+// (ops/flash_attention.py's _KERNEL_DTYPES, _KERNEL_HEAD_DIMS and
+// _KERNEL_WIDE name the same cases, lint HVL104).
+#define HVD_FLASH_WIDE 0
 #define HVD_FLASH_CASE(code, T, W, dtype, head_dim, FN, ...) \
   if ((dtype) == code && (head_dim) == W) return FN<T, W>(__VA_ARGS__)
+#define HVD_FLASH_WIDE_CASE(code, T, dtype, head_dim, FN, ...) \
+  if ((dtype) == code && (head_dim) == HVD_FLASH_WIDE)        \
+  return FN##_wide<T>(__VA_ARGS__)
 #define HVD_FLASH_DISPATCH(dtype, head_dim, FN, ...)                          \
   do {                                                                        \
     HVD_FLASH_CASE(0, float, 32, dtype, head_dim, FN, __VA_ARGS__);           \
@@ -251,5 +269,8 @@ __host__ int kernel_info(Kernel kernel, int threads, int smem_bytes,
     HVD_FLASH_CASE(2, hvdflash::f16, 128, dtype, head_dim, FN, __VA_ARGS__);  \
     HVD_FLASH_CASE(2, hvdflash::f16, 192, dtype, head_dim, FN, __VA_ARGS__);  \
     HVD_FLASH_CASE(2, hvdflash::f16, 256, dtype, head_dim, FN, __VA_ARGS__);  \
+    HVD_FLASH_WIDE_CASE(0, float, dtype, head_dim, FN, __VA_ARGS__);          \
+    HVD_FLASH_WIDE_CASE(1, hvdflash::bf16, dtype, head_dim, FN, __VA_ARGS__); \
+    HVD_FLASH_WIDE_CASE(2, hvdflash::f16, dtype, head_dim, FN, __VA_ARGS__);  \
     return (int)cudaErrorInvalidValue;                                        \
   } while (0)

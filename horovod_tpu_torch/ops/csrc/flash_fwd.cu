@@ -43,6 +43,15 @@
 //
 // Widths: q/k are d wide and v/o dv wide, each at most the instantiated D;
 // the columns past them read as zeros (flash_common.cuh).
+//
+// Wide (any d and dv; flash_fwd_wide_sm90<T>, flash_fwd_wide_kernel): the
+// grid's z runs over o's chunks of WIDE_C columns. Every z-block of a q
+// tile computes the same S = Q.K^T, streaming q's and k's d-chunks through
+// the ring (the products summed in the same order, so the running max and
+// sum agree bit for bit across z), then O_z += P.V_z on v's chunk z. Each
+// block writes its own o columns; z = 0 writes the lse. S is recomputed
+// once per chunk of o: at d = dv = 768 the products are twice the narrow
+// kernels' count.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -90,8 +99,8 @@ __global__ void __launch_bounds__(THREADS)
   float* sO = reinterpret_cast<float*>(smem + Sm::O);
   float* sL = reinterpret_cast<float*>(smem + Sm::L);
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BMF;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * BMF;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t rs_qk = (size_t)H * d, rs_v = (size_t)H * dv;
   const float* qb = q + ((size_t)b * Tq * H + h) * d;
@@ -364,7 +373,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   if (d < 1 || dv < 1 || d > D || dv > D) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
     using Sm = FwdSmem<D>;
-    dim3 grid((Tq + Sm::BMF - 1) / Sm::BMF, B * H);
+    dim3 grid(B * H, (Tq + Sm::BMF - 1) / Sm::BMF);
     constexpr int bytes = Sm::BYTES;
     cudaError_t err = prepare(flash_fwd_kernel<D>, bytes);
     if (err != cudaSuccess) return err;
@@ -401,17 +410,309 @@ int info_fwd(int* info) {
                        info);
 }
 
+// ---- wide: any d and dv, o in WIDE_C-column chunks over the grid's z -------
+
+// fp32: the d 256 kernel's layout, its Q, K and V tiles holding one chunk.
+__global__ void __launch_bounds__(THREADS)
+    flash_fwd_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int H, int Tq, int Tk,
+                          int d, int dv, int causal, float scale, float q_off,
+                          float k_off, int block_q, int block_k) {
+  constexpr int C = WIDE_C;
+  using Sm = FwdSmem<C>;
+  constexpr int BN = Sm::BN, BMF = Sm::BMF, WR = Sm::WR, LPR = Sm::LPR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem + Sm::Q);
+  float* sK = reinterpret_cast<float*>(smem + Sm::K);
+  float* sV = reinterpret_cast<float*>(smem + Sm::V);
+  float* sS = reinterpret_cast<float*>(smem + Sm::S);
+  float* sP = reinterpret_cast<float*>(smem + Sm::P);
+  float* sO = reinterpret_cast<float*>(smem + Sm::O);
+  float* sL = reinterpret_cast<float*>(smem + Sm::L);
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.y * BMF, c_o = blockIdx.z * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t rs_qk = (size_t)H * d, rs_v = (size_t)H * dv;
+  const float* qb = q + ((size_t)b * Tq * H + h) * d;
+  const float* kb = k + ((size_t)b * Tk * H + h) * d;
+  const float* vb = v + ((size_t)b * Tk * H + h) * dv + c_o;
+  const int nd = wide_chunks(d);
+
+  for (int i = threadIdx.x; i < BMF * Sm::LDO; i += THREADS) sO[i] = 0.f;
+  const int r = lane / LPR, part = lane % LPR;
+  const int row = warp * WR + r;
+  const float q_pos = q_off + (float)(q0 + row);
+  const float* wQ = sQ + warp * WR * Sm::LDE;
+  float* wS = sS + warp * WR * Sm::LDS;
+  float* wP = sP + warp * WR * Sm::LDP;
+  float* wO = sO + warp * WR * Sm::LDO;
+  float m = NEG_INF, l = 0.f;
+
+  int num_k = (Tk + BN - 1) / BN;
+  int kv_end = Tk;
+  if (causal) {
+    num_k = fwd_num_k(q_off, k_off, q0, BN, Tq, Tk, block_q, block_k, BMF);
+    kv_end = ref_kv_end(q_off, k_off, q0 + row, block_q, block_k, Tk);
+  }
+
+  for (int kt = 0; kt < num_k; ++kt) {
+    const int k0 = kt * BN;
+    for (int c = 0; c < nd; ++c) {  // s = q . k^T, one d-chunk at a time
+      __syncthreads();  // the last chunk's (or tile's) readers are done
+      load_rows<BMF, C, Sm::LDE>(sQ, qb + c * C, q0, Tq, rs_qk, d - c * C);
+      load_rows<BN, C, Sm::LDE>(sK, kb + c * C, k0, Tk, rs_qk, d - c * C);
+      __syncthreads();
+      if (c == 0)
+        warp_mm_abT<BN, C, Sm::LDE, Sm::LDE, Sm::LDS, WR>(wS, wQ, sK);
+      else
+        warp_mm_abT<BN, C, Sm::LDE, Sm::LDE, Sm::LDS, WR, true>(wS, wQ, sK);
+    }
+    load_rows<BN, C, Sm::LDE>(sV, vb, k0, Tk, rs_v, dv - c_o);
+    __syncthreads();
+
+    // the narrow kernel's online softmax on the whole row of s
+    float mx = -INFINITY;
+    for (int c = part; c < BN; c += LPR) {
+      const int kc = k0 + c;
+      float s = wS[r * Sm::LDS + c] * scale;
+      if (kc >= kv_end)
+        s = -INFINITY;
+      else if (causal && !(q_pos >= k_off + (float)kc))
+        s = NEG_INF;
+      wS[r * Sm::LDS + c] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = row_max(mx, LPR);
+    const float m_new = fmaxf(m, mx);
+    float sum = 0.f;
+    for (int c = part; c < BN; c += LPR) {
+      const float p = expf(wS[r * Sm::LDS + c] - m_new);
+      sum += p;
+      wP[r * Sm::LDP + c] = p;
+    }
+    sum = row_sum(sum, LPR);
+    const float alpha = expf(m - m_new);
+    l = l * alpha + sum;
+    m = m_new;
+    for (int c = part; c < C; c += LPR) wO[r * Sm::LDO + c] *= alpha;
+    __syncwarp();
+    warp_mm_ab_acc<C, BN, Sm::LDP, Sm::LDE, Sm::LDO, WR>(wO, wP, sV);
+  }
+
+  if (part == 0) {
+    sL[row] = l;
+    if (blockIdx.z == 0 && q0 + row < Tq)
+      lse[(size_t)bh * Tq + q0 + row] =
+          l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : NEG_INF;
+  }
+  __syncthreads();
+  store_rows<BMF, Sm::LDO>(o + ((size_t)b * Tq * H + h) * dv + c_o, sO, q0,
+                           Tq, rs_v, min(C, dv - c_o), sL);
+}
+
+// bf16 / fp16: per k tile, nd steps of (q, k) chunks into S, then one step
+// of v's chunk z into O (sm90::WideSm90's ring).
+template <typename T>
+__global__ void __launch_bounds__(sm90::WG)
+    flash_fwd_wide_sm90(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        T* __restrict__ o, float* __restrict__ lse, int H,
+                        int Tq, int Tk, int d, int dv, int causal,
+                        float scale, float q_off, float k_off, int block_q,
+                        int block_k) {
+  using namespace sm90;
+  using L = WideSm90;
+  constexpr int BN = L::BN, C = L::C;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR);
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM, c_o = blockIdx.z * C;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2), c2 = (lane & 3) * 2;
+
+  int num_k = (Tk + BN - 1) / BN;
+  float q_pos[2];
+  int kv_end[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    q_pos[i] = q_off + (float)(q0 + r0 + 8 * i);
+    kv_end[i] = causal ? ref_kv_end(q_off, k_off, q0 + r0 + 8 * i, block_q,
+                                    block_k, Tk)
+                       : Tk;
+  }
+  if (causal)
+    num_k = fwd_num_k(q_off, k_off, q0, BN, Tq, Tk, block_q, block_k);
+  const int nd = wide_chunks(d), spt = nd + 1, total = num_k * spt;
+  auto load = [&](int it) {  // step j < nd: chunk j of q and k; j = nd: v
+    const int kt = it / spt, j = it - kt * spt;
+    if (j < nd)
+      wide_load(smem, bar, it, &map_q, q0, &map_k, kt * BN, j * C, h, b);
+    else
+      wide_load(smem, bar, it, nullptr, 0, &map_v, kt * BN, c_o, h, b);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < L::STAGES; ++i) mbar_init(&bar[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && total > 0) load(0);
+
+  float acc_o[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) acc_o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float scale_log2 = scale * LOG2E;
+  int it = 0;
+  auto next = [&]() {  // step it's stage, once its tiles are in
+    if (tid == 0 && it + 1 < total) load(it + 1);
+    mbar_wait(&bar[it & 1], (it >> 1) & 1);
+    return smem_u32(smem + (it & 1) * L::STAGE);
+  };
+
+  for (int kt = 0; kt < num_k; ++kt) {
+    float acc_s[BN / 2];
+    for (int j = 0; j < nd; ++j, ++it) {  // S = Q . K^T over d
+      wide_ss<T>(acc_s, next(), j == 0);
+      __syncthreads();
+    }
+
+    // the narrow kernel's online softmax, in log2 units
+    const int k0 = kt * BN;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, col = k0 + 8 * j + c2 + (e & 1);
+        float x = acc_s[4 * j + e] * scale_log2;
+        if (col >= kv_end[i])
+          x = -INFINITY;
+        else if (causal && !(q_pos[i] >= k_off + (float)col))
+          x = NEG_INF;
+        acc_s[4 * j + e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(acc_s[4 * j + e] - m[e >> 1]);
+        l[e >> 1] += p;
+        acc_s[4 * j + e] = p;
+      }
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_o[4 * j + e] *= alpha[e >> 1];
+
+    // O_z += P . V_z, p cast to v's dtype in registers
+    uint32_t pf[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) to_a_frag<T>(pf[kk], acc_s, kk);
+    wide_rs<T>(acc_o, pf, next());
+    __syncthreads();
+    ++it;
+  }
+
+  const size_t rs = (size_t)H * dv;
+  T* ob = o + ((size_t)b * Tq * H + h) * dv + c_o;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int t = q0 + r0 + 8 * i;
+    if (t >= Tq) continue;
+    const float div = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+      if (c_o + 8 * j + c2 < dv)  // dv is even: a pair is wholly in or out
+        *reinterpret_cast<uint32_t*>(ob + (size_t)t * rs + 8 * j + c2) =
+            pack2<T>(acc_o[4 * j + 2 * i] / div,
+                     acc_o[4 * j + 2 * i + 1] / div);
+    if (blockIdx.z == 0 && (lane & 3) == 0) {
+      const float ln2 = 0.6931471805599453f;
+      lse[(size_t)bh * Tq + t] =
+          (l[i] > 0.f && m[i] > NEG_INF / 2) ? m[i] * ln2 + logf(l[i])
+                                              : NEG_INF;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int B, int H, int Tq, int Tk,
+                            int d, int dv, int causal, float scale,
+                            float q_off, float k_off, int block_q,
+                            int block_k, cudaStream_t stream) {
+  if (d < 1 || dv < 1) return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, float>::value) {
+    using Sm = FwdSmem<WIDE_C>;
+    cudaError_t err = prepare(flash_fwd_wide_kernel, Sm::BYTES);
+    if (err != cudaSuccess) return err;
+    dim3 grid(B * H, (Tq + Sm::BMF - 1) / Sm::BMF, wide_chunks(dv));
+    flash_fwd_wide_kernel<<<grid, THREADS, Sm::BYTES, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o),
+        static_cast<float*>(lse), H, Tq, Tk, d, dv, causal, scale, q_off,
+        k_off, block_q, block_k);
+  } else {
+    using L = sm90::WideSm90;
+    CUtensorMap mq, mk, mv;
+    cudaError_t err = sm90::make_map<T>(&mq, q, B, Tq, H, d, L::C, BM);
+    if (err == cudaSuccess)
+      err = sm90::make_map<T>(&mk, k, B, Tk, H, d, L::C, L::BN);
+    if (err == cudaSuccess)
+      err = sm90::make_map<T>(&mv, v, B, Tk, H, dv, L::C, L::BN);
+    if (err == cudaSuccess) err = prepare(flash_fwd_wide_sm90<T>, L::BYTES);
+    if (err != cudaSuccess) return err;
+    dim3 grid(B * H, (Tq + BM - 1) / BM, wide_chunks(dv));
+    flash_fwd_wide_sm90<T><<<grid, sm90::WG, L::BYTES, stream>>>(
+        mq, mk, mv, static_cast<T*>(o), static_cast<float*>(lse), H, Tq, Tk,
+        d, dv, causal, scale, q_off, k_off, block_q, block_k);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int info_fwd_wide(int* info) {
+  if constexpr (std::is_same<T, float>::value)
+    return kernel_info(flash_fwd_wide_kernel, THREADS,
+                       FwdSmem<WIDE_C>::BYTES, info);
+  else
+    return kernel_info(flash_fwd_wide_sm90<T>, sm90::WG,
+                       sm90::WideSm90::BYTES, info);
+}
+
 }  // namespace hvdflash
 
 // Registers, spill bytes, shared memory and blocks per SM of the forward
 // kernel for (dtype, head_dim); see hvdflash::kernel_info.
 extern "C" int hvd_flash_fwd_info(int dtype, int head_dim, int* info) {
   using hvdflash::info_fwd;
+  using hvdflash::info_fwd_wide;
   HVD_FLASH_DISPATCH(dtype, head_dim, info_fwd, info);
 }
 
-// head_dim: the instantiated width D; d and dv: the widths of q/k and of
-// v/o, each at most D. block_q/block_k: the reference's tiling, which
+// head_dim: the instantiated width D, or HVD_FLASH_WIDE (any d and dv);
+// d and dv: the widths of q/k and of v/o, each at most D. block_q/block_k: the reference's tiling, which
 // decides o on rows with no visible key (0: no reference tiling, every key
 // counts).
 extern "C" int hvd_flash_fwd(int dtype, int head_dim, int d, int dv,
@@ -421,6 +722,7 @@ extern "C" int hvd_flash_fwd(int dtype, int head_dim, int d, int dv,
                              float k_off, int block_q, int block_k,
                              void* stream) {
   using hvdflash::launch_fwd;
+  using hvdflash::launch_fwd_wide;
   HVD_FLASH_DISPATCH(dtype, head_dim, launch_fwd, q, k, v, o, lse, B, H, Tq,
                      Tk, d, dv, causal, scale, q_off, k_off, block_q, block_k,
                      static_cast<cudaStream_t>(stream));

@@ -37,6 +37,8 @@
 
 #include <type_traits>
 
+#include "flash_common.cuh"
+
 namespace hvdflash {
 namespace sm90 {
 
@@ -107,18 +109,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A [ROWS x D] tile of one (batch, head) slice, rows [t0, t0 + ROWS), as
-// D / PW panels; columns past the tensor's width arrive as zeros (a panel
-// wholly past it too), and the caller's mbarrier expects ROWS * D * 2 bytes
-// whatever the width.
+// A [ROWS x D] tile of one (batch, head) slice, rows [t0, t0 + ROWS) and
+// columns [c0, c0 + D), as D / PW panels; columns past the tensor's width
+// arrive as zeros (a panel wholly past it too), and the caller's mbarrier
+// expects ROWS * D * 2 bytes whatever the width.
 template <int D, int ROWS>
 __device__ __forceinline__ void tma_tile(unsigned char* dst,
                                          const CUtensorMap* map, uint64_t* bar,
-                                         int h, int t0, int b) {
+                                         int h, int t0, int b, int c0 = 0) {
   constexpr int PW = D < 64 ? D : 64;
 #pragma unroll
   for (int p = 0; p < D / PW; ++p)
-    tma_load(dst + p * ROWS * PW * 2, map, bar, p * PW, h, t0, b);
+    tma_load(dst + p * ROWS * PW * 2, map, bar, c0 + p * PW, h, t0, b);
 }
 
 // ---- wgmma ---------------------------------------------------------------
@@ -330,6 +332,89 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
     rs_panels<T, D, ROWS>(d, a, tile, kk);
 }
 
+// ---- the wide kernels' ring ------------------------------------------------
+// Above head width 256 a block owns one WIDE_C-column chunk of its output
+// (blockIdx.z) and runs a sequence of steps, each on one stage of a
+// two-stage TMA ring: a step holds an A tile (the block's own 64 rows) and
+// a B tile (BN streamed rows), both WIDE_C columns of one chunk, or a B
+// tile alone. Step `it` uses stage it & 1; its loads are issued at the
+// start of step it - 1, whose stage the __syncthreads ending step it - 2
+// released. WIDE_C = 256 keeps the register shape of the d 256
+// instantiations: a 64 x 256 fp32 accumulator and 32-column score tiles.
+struct WideSm90 {
+  static constexpr int C = WIDE_C;
+  static constexpr int BN = 32;                 // rows of a B tile
+  static constexpr int AT = BM * C * 2;         // bytes of an A tile
+  static constexpr int BT = BN * C * 2;         // bytes of a B tile
+  static constexpr int STAGE = AT + BT;         // A, then B
+  static constexpr int STAGES = 2;
+  static constexpr int ROWS = STAGES * STAGE;   // lse, corr of a q tile
+  static constexpr int BAR = ROWS + 2 * BN * 4;
+  static constexpr int BYTES = BAR + 8 * STAGES + 1024;  // + alignment
+};
+
+// Issue step `it`'s loads (one thread): columns [c0, c0 + C) of rows
+// [a_t0, a_t0 + 64) of map_a (none when map_a is null) and of rows
+// [b_t0, b_t0 + BN) of map_b.
+__device__ __forceinline__ void wide_load(unsigned char* smem, uint64_t* bar,
+                                          int it, const CUtensorMap* map_a,
+                                          int a_t0, const CUtensorMap* map_b,
+                                          int b_t0, int c0, int h, int b) {
+  using L = WideSm90;
+  unsigned char* st = smem + (it & 1) * L::STAGE;
+  uint64_t* br = &bar[it & 1];
+  mbar_expect(br, (map_a != nullptr ? L::AT : 0) + L::BT);
+  if (map_a != nullptr) tma_tile<L::C, BM>(st, map_a, br, h, a_t0, b, c0);
+  tma_tile<L::C, L::BN>(st + L::AT, map_b, br, h, b_t0, b, c0);
+}
+
+// acc (+)= A . B^T over the chunk in the stage at shared address `st`
+// (both tiles K-major); `first` overwrites acc. Each 64 columns of the
+// reduction are summed by wgmma into a fresh accumulator and added to acc
+// in fp32: wgmma's own accumulation over a long reduction drifts (over
+// d 768 in one accumulator, dq in rows that see one key read 4.4e-6 from
+// float64 against the plain version's 1.1e-6; partial sums of 64 columns
+// read 0.8e-6, PERF.md §6).
+template <typename T>
+__device__ __forceinline__ void wide_ss(float (&acc)[WideSm90::BN / 2],
+                                        uint32_t st, bool first) {
+  using L = WideSm90;
+  constexpr int PS = 4;  // k16 slices of one partial sum: 64 columns
+#pragma unroll
+  for (int p = 0; p < L::C / 16 / PS; ++p) {
+    float part[L::BN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = p * PS; kk < (p + 1) * PS; ++kk)
+      wgmma_ss<T>(part, desc_kmajor<L::C, BM>(st, kk),
+                  desc_kmajor<L::C, L::BN>(st + L::AT, kk), kk > p * PS);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < L::BN / 2; ++i)
+      acc[i] = first && p == 0 ? part[i] : acc[i] + part[i];
+  }
+}
+
+// acc[64 x C] += F . B over the B tile in the stage at `st` (MN-major),
+// F the BN-column fragments f.
+template <typename T>
+__device__ __forceinline__ void wide_rs(float (&acc)[WideSm90::C / 2],
+                                        const uint32_t (&f)[WideSm90::BN / 16]
+                                                           [4],
+                                        uint32_t st) {
+  using L = WideSm90;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::BN / 16; ++kk)
+    wgmma_rs<T, L::C, L::BN>(acc, f[kk], st + L::AT, kk);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+}
+
 // ---- host: tensor maps -----------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -356,15 +441,16 @@ inline EncodeTiledFn encode_tiled() {
 
 // Tensor map of a [B, T, H, W] 16-bit tensor read in place, as the 4-D
 // array (W, H, T, B), with a box of one head's [ROWS x PW] panel of a
-// D-wide tile (PW = min(D, 64)). Rows past T and columns past W read as
-// zeros and never reach into the next head or batch. W * 2 bytes must be a
-// multiple of 16 (the TMA's stride rule).
+// D-wide tile (PW = min(D, 64)); W above D is read in D-column chunks
+// (tma_tile's c0). Rows past T and columns past W read as zeros and never
+// reach into the next head or batch. W * 2 bytes must be a multiple of 16
+// (the TMA's stride rule).
 template <typename T>
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int B,
                             int Tlen, int H, int W, int D, int rows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  if ((W * 2) % 16 != 0 || W > D) return cudaErrorInvalidValue;
+  if ((W * 2) % 16 != 0) return cudaErrorInvalidValue;
   const int pw = D < 64 ? D : 64;
   cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)Tlen,
                         (cuuint64_t)B};

@@ -14,14 +14,17 @@ Each wrapper launches its kernel for a CUDA tensor (or raises) and counts
 the launch in its ``launches`` attribute; for a CPU tensor it runs the
 kernel's plain PyTorch version, which follows the reference tile by tile,
 honouring ``block_q``/``block_k`` exactly. The kernels take what the Pallas
-kernels take: fp32, bf16 and fp16, and q/k of any width d with v of any
-width dv, up to 256 (wgmma's largest N, ROADMAP C29). They are instantiated
-at the widths of ``_KERNEL_HEAD_DIMS``; a launch runs at the smallest one
->= max(d, dv) and reads the narrower tensors in place, their missing
-columns as zeros, which change neither q.k^T nor the lse. Only 16-bit
-widths that are not a multiple of 8 (rows the TMA cannot address) are
-copied into zero-padded tensors first, and the outputs sliced back. The
-CUDA kernels use their own tile sizes (64 rows, or 32 in fp32 above width
+kernels take: fp32, bf16 and fp16, q/k of any width d and v of any width
+dv, and any batch * heads. Up to 256 they are instantiated at the widths of
+``_KERNEL_HEAD_DIMS``; a launch runs at the smallest one >= max(d, dv) and
+reads the narrower tensors in place, their missing columns as zeros, which
+change neither q.k^T nor the lse. Above 256 a launch runs the wide
+instantiation (``_KERNEL_WIDE``): each block owns one chunk of
+``WIDE_CHUNK`` columns of its output (:func:`wide_plan`) and streams the
+products over d and dv in chunks of as many columns. Only 16-bit widths
+that are not a multiple of 8 (rows the TMA cannot address) are copied
+into zero-padded tensors first, and the outputs sliced back. The CUDA
+kernels use their own tile sizes (64 rows, or 32 in fp32 above width
 128, and 32 or 64 streamed rows); the forward kernel also
 takes the block arguments, which decide o on causal rows that see no key
 (the mean of v over the keys the reference's tiles visit), so the two
@@ -51,11 +54,14 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps exp() NaN-free
 # the shortest length swept. The reference keeps its TPU value, 1024.
 DEFAULT_FLASH_MIN_SEQ = 256
 
-# dtype codes and instantiated head widths of the CUDA kernels: the cases of
-# HVD_FLASH_DISPATCH (csrc/flash_common.cuh), kept equal by lint HVL104
+# dtype codes and instantiated head widths of the CUDA kernels, and the
+# head_dim code of each dtype's wide instantiation (any d and dv above the
+# widest): the cases of HVD_FLASH_DISPATCH and HVD_FLASH_WIDE
+# (csrc/flash_common.cuh), kept equal by lint HVL104
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KERNEL_HEAD_DIMS = (32, 64, 128, 192, 256)
-MAX_HEAD_DIM = _KERNEL_HEAD_DIMS[-1]
+_KERNEL_WIDE = 0
+WIDE_CHUNK = 256  # columns of one chunk of the wide kernels (WIDE_C)
 
 
 # ---------------------------------------------------------------------------
@@ -239,21 +245,13 @@ def _check_shapes(name: str, tensors: dict) -> None:
 
 
 def _check_cuda(name: str, tensors: dict) -> int:
-    """Check what the CUDA kernel supports, after :func:`_check_shapes`;
-    returns its dtype code."""
+    """Check what the CUDA kernel supports, after :func:`_check_shapes`
+    (every width and batch * heads are taken); returns its dtype code."""
     q = tensors["q"]
-    b, _, h, d = q.shape
-    dv = tensors["v"].shape[-1]
     dtype = q.dtype
     if dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{name}: CUDA kernel takes float32, bfloat16 or "
                         f"float16, got {dtype}")
-    if max(d, dv) > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: CUDA kernel takes head_dim up to "
-                         f"{MAX_HEAD_DIM} (wgmma's largest N), got q/k {d}, "
-                         f"v {dv}")
-    if b * h > 65535:
-        raise ValueError(f"{name}: batch*heads={b * h} exceeds the grid")
     for key, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name}: {key} is on {t.device}, q on "
@@ -269,14 +267,25 @@ def _check_cuda(name: str, tensors: dict) -> int:
 
 
 def kernel_width(d: int, dv: int) -> int:
-    """The instantiated head width a launch with q/k of width ``d`` and v
-    of width ``dv`` runs at: the smallest of ``_KERNEL_HEAD_DIMS`` >=
-    max(d, dv)."""
+    """The instantiation a launch with q/k of width ``d`` and v of width
+    ``dv`` runs at: the smallest of ``_KERNEL_HEAD_DIMS`` >= max(d, dv),
+    or above the widest ``_KERNEL_WIDE``."""
     for w in _KERNEL_HEAD_DIMS:
         if max(d, dv) <= w:
             return w
-    raise ValueError(f"no CUDA kernel for head_dim {max(d, dv)} "
-                     f"(at most {MAX_HEAD_DIM})")
+    return _KERNEL_WIDE
+
+
+def wide_plan(kernel: str, d: int, dv: int) -> list:
+    """What each block of a wide launch of ``kernel`` writes, by its grid
+    z: (output, first column, end column), chunks of ``WIDE_CHUNK``. The
+    forward's z runs over o's dv-chunks, dq's over dq's d-chunks and dk/dv's
+    over dV's dv-chunks, then dK's d-chunks (``launch_*_wide`` in csrc)."""
+    def chunks(out, w):
+        return [(out, c, min(c + WIDE_CHUNK, w))
+                for c in range(0, w, WIDE_CHUNK)]
+    return {"flash_fwd": chunks("o", dv), "flash_bwd_dq": chunks("dq", d),
+            "flash_bwd_dkv": chunks("dv", dv) + chunks("dk", d)}[kernel]
 
 
 def reads_in_place(dtype: torch.dtype, d: int, dv: int) -> bool:
@@ -284,6 +293,14 @@ def reads_in_place(dtype: torch.dtype, d: int, dv: int) -> bool:
     place: always in fp32 (plain loads); in 16 bits when each row is a
     multiple of 16 bytes, as the TMA's strides must be."""
     return dtype == torch.float32 or (d % 8 == 0 and dv % 8 == 0)
+
+
+def padded_width(d: int, dv: int) -> int:
+    """The width of the zero-padded copy for 16-bit widths the TMA cannot
+    read in place: the instantiation's, or for the wide one the next
+    multiple of 8 (16-byte rows)."""
+    w = kernel_width(d, dv)
+    return w if w != _KERNEL_WIDE else -(-max(d, dv) // 8) * 8
 
 
 def pad_width(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -393,7 +410,7 @@ def _on_card(name, launch, widths, tensors, *args):
     inputs = tuple(tensors.values())
     if reads_in_place(q.dtype, d, dv):
         return launch(*inputs, *args)
-    return padded(launch, kernel_width(d, dv), widths, *inputs, *args)
+    return padded(launch, padded_width(d, dv), widths, *inputs, *args)
 
 
 def flash_fwd(q, k, v, causal: bool, sm_scale: float, q_off: float = 0.0,
@@ -462,10 +479,12 @@ def kernel_info(name: str, dtype: torch.dtype, head_dim: int) -> dict:
     """Registers and local-memory (spill) bytes per thread, dynamic shared
     memory per block and resident blocks per SM of one CUDA kernel
     (``name`` as in :data:`KERNELS`) at an instantiated ``head_dim`` (one
-    of ``_KERNEL_HEAD_DIMS``), as the card reports them."""
+    of ``_KERNEL_HEAD_DIMS``, or ``_KERNEL_WIDE``), as the card reports
+    them."""
     import ctypes
     from horovod_tpu_torch.ops import _build
-    if dtype not in _KERNEL_DTYPES or head_dim not in _KERNEL_HEAD_DIMS:
+    if dtype not in _KERNEL_DTYPES or \
+            head_dim not in _KERNEL_HEAD_DIMS + (_KERNEL_WIDE,):
         raise ValueError(f"no CUDA kernel for {dtype}, head_dim {head_dim}")
     info = (ctypes.c_int * 4)()
     code = _KERNEL_DTYPES[dtype]

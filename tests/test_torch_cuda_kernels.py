@@ -81,11 +81,14 @@ def test_cuda_flash_attention_autograd_matches_cpu(cuda_device):
 @pytest.mark.parametrize("d,dv,dtype", [
     (16, 16, "bfloat16"), (48, 48, "float16"), (80, 80, "bfloat16"),
     (96, 96, "float16"), (192, 128, "bfloat16"), (64, 32, "float16"),
-    (36, 28, "bfloat16"), (20, 20, "float32"), (200, 136, "float32")])
+    (36, 28, "bfloat16"), (20, 20, "float32"), (200, 136, "float32"),
+    (288, 288, "bfloat16"), (576, 512, "float16"), (300, 290, "bfloat16"),
+    (384, 320, "float32")])
 def test_cuda_kernels_at_other_widths_match_plain(cuda_device, d, dv, dtype):
-    """Widths between the instantiations, read in place (or, for 16-bit
-    rows the TMA cannot address, through the zero-padded copy), and v's
-    width apart from q's, causal with offsets and a dlse."""
+    """Widths between the instantiations and past the widest (the wide
+    kernels), read in place (or, for 16-bit rows the TMA cannot address,
+    through the zero-padded copy), and v's width apart from q's, causal
+    with offsets and a dlse."""
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(d + dv)
     q = torch.randn(2, 128, 2, d, generator=g).to(cuda_device, dt)
@@ -102,9 +105,6 @@ def test_cuda_kernels_at_other_widths_match_plain(cuda_device, d, dv, dtype):
 def test_cuda_wrappers_reject_unsupported_inputs(cuda_device):
     q = torch.zeros(1, 64, 2, 64, device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
-        fa.flash_fwd(q, q, q, False, 0.125)
-    q = torch.zeros(1, 64, 2, 512, device=cuda_device)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
         fa.flash_fwd(q, q, q, False, 0.125)
     q = torch.zeros(1, 2, 64, 64, device=cuda_device).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -257,14 +257,16 @@ def test_cuda_dead_rows_take_the_mean_over_reference_tiles(cuda_device):
 @pytest.mark.cuda
 def test_cuda_redesigned_kernels_keep_accumulators_in_registers(cuda_device):
     """The bf16 and fp16 TMA/wgmma kernels do not spill at any head width,
-    and keep at least two blocks resident per SM up to 128 (above it one
-    block's tiles take more than half an SM's shared memory)."""
+    the wide instantiation's included, and keep at least two blocks
+    resident per SM up to 128 (above it one block's tiles take more than
+    half an SM's shared memory)."""
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         for dt in (torch.bfloat16, torch.float16):
-            for d in fa._KERNEL_HEAD_DIMS:
+            for d in fa._KERNEL_HEAD_DIMS + (fa._KERNEL_WIDE,):
                 info = fa.kernel_info(name, dt, d)
                 assert info["local_bytes"] == 0, (name, dt, d, info)
-                assert info["blocks_per_sm"] >= (2 if d <= 128 else 1), \
+                narrow = d != fa._KERNEL_WIDE and d <= 128
+                assert info["blocks_per_sm"] >= (2 if narrow else 1), \
                     (name, dt, d, info)
 
 

@@ -292,14 +292,13 @@ def test_wrappers_accept_matching_shapes_with_other_value_dim():
 
 @pytest.mark.parametrize("change, error, match", [
     (dict(dtype=torch.float64), TypeError, "float32, bfloat16 or float16"),
-    (dict(head_dim=512), ValueError, "head_dim up to 256"),
     (dict(lse_dtype=torch.float64), TypeError, "lse is"),
     (dict(strided="k"), ValueError, "k must be contiguous"),
 ])
 def test_cuda_check_refuses_what_the_kernels_do_not_take(change, error,
                                                          match):
-    """The CUDA-only checks (dtype, head_dim, contiguity), run here on CPU
-    tensors: a CUDA tensor that fails them raises before any launch."""
+    """The CUDA-only checks (dtype, lse's dtype, contiguity), run here on
+    CPU tensors: a CUDA tensor that fails them raises before any launch."""
     d = change.get("head_dim", 32)
     t = _wrapper_inputs(q=(1, 64, 2, d), k=(1, 128, 2, d),
                         v=(1, 128, 2, d), do=(1, 64, 2, d))
@@ -316,11 +315,23 @@ def test_cuda_check_refuses_what_the_kernels_do_not_take(change, error,
         fa._check_cuda("flash_bwd_dq", t)
 
 
-def test_cuda_check_passes_supported_inputs():
+@pytest.mark.parametrize("shape", [
+    dict(), dict(d=288), dict(d=512), dict(d=576, dv=512), dict(d=1024),
+    dict(h=65600, tq=1, tk=1, d=8)],
+    ids=["d32", "d288", "d512", "d576_dv512", "d1024", "bh65600"])
+def test_cuda_check_passes_supported_inputs(shape):
+    """Every dtype, at widths the narrow kernels take and at those only
+    the wide ones do (above 256), and at a batch * heads past 65,535 (a
+    grid's y and z limit)."""
+    h, d = shape.get("h", 2), shape.get("d", 32)
+    dv, tq, tk = shape.get("dv", d), shape.get("tq", 64), shape.get("tk", 128)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        t = _wrapper_inputs()
+        t = _wrapper_inputs(q=(1, tq, h, d), k=(1, tk, h, d),
+                            v=(1, tk, h, dv), do=(1, tq, h, dv),
+                            lse=(1, h, tq), corr=(1, h, tq))
         t = {key: x if key in ("lse", "corr") else x.to(dtype)
              for key, x in t.items()}
+        fa._check_shapes("flash_bwd_dkv", t)
         assert fa._check_cuda("flash_bwd_dkv", t) == \
             fa._KERNEL_DTYPES[dtype]
 

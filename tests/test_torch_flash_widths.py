@@ -1,5 +1,7 @@
 """The flash kernels' whole envelope: every float dtype (fp32, bf16, fp16),
-head widths other than 32/64/128 up to 256, and v's width apart from q's.
+head widths other than 32/64/128, up to 256 and past it (the wide
+kernels, which cut the head dimension into 256-column chunks), and v's
+width apart from q's.
 
 The plain versions of the three CUDA kernels (what a CPU tensor runs, and
 what ``chip_smoke.py`` holds each kernel against on the card) against the
@@ -7,8 +9,9 @@ reference's Pallas kernels in interpret mode (``_flash_fwd`` and
 ``_flash_bwd``), on the same numpy inputs cast to the same dtype. Then the
 wrappers' pad-and-slice (the CUDA branch's route for 16-bit widths the TMA
 cannot read in place) around the plain versions, bit for bit against the
-unpadded plain versions, and a tiny GPT in fp16 through ``make_train_step``
-against the reference's fp16 step.
+unpadded plain versions, the wide kernels' chunk plan, and a tiny GPT in
+fp16 through ``make_train_step`` against the reference's fp16 step, at two
+heads of 32 and at one head of 512.
 
 Tolerances: fp32 the reference tests' own (forward rtol 2e-4 / atol 2e-5,
 gradients 2e-3 / 2e-4, lse 1e-4 / 1e-5); bf16 and fp16 those
@@ -129,8 +132,19 @@ def test_plain_kernels_match_pallas_with_other_value_width(d, dv, dtype):
                                    tq=64, tk=128)
 
 
-PAD_CASES = [  # (d, dv, width the kernels would run at)
-    (20, 20, 32), (48, 48, 64), (36, 28, 64), (192, 128, 192), (90, 90, 128)]
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("d,dv,t", [(288, 288, 128), (384, 384, 128),
+                                    (512, 512, 64), (576, 512, 64)])
+def test_plain_kernels_match_pallas_above_256(d, dv, t, dtype):
+    """Widths only the wide kernels take: a 32-column remainder chunk
+    (288), 384 and 512 (two chunks), and the absorbed-MLA shape 576/512
+    (three d-chunks, two dv-chunks), causal, with a dlse cotangent."""
+    _check_plain_against_reference(d + dv, d, dv, dtype, tq=t, tk=t)
+
+
+PAD_CASES = [  # (d, dv, width of the zero-padded copy)
+    (20, 20, 32), (48, 48, 64), (36, 28, 64), (192, 128, 192), (90, 90, 128),
+    (300, 290, 304)]
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -138,8 +152,9 @@ PAD_CASES = [  # (d, dv, width the kernels would run at)
 def test_pad_and_slice_equals_unpadded_plain_bit_for_bit(d, dv, w, dtype):
     """The wrappers' pad-and-slice around each plain version gives the
     unpadded plain version's outputs bit for bit: zero columns add exact
-    zeros to every product, and the padded output columns are dropped."""
-    assert fa.kernel_width(d, dv) == w
+    zeros to every product, and the padded output columns are dropped.
+    Above 256 the copy is padded to the next multiple of 8 only."""
+    assert fa.padded_width(d, dv) == w
     pairs, dlse = _inputs(7 * d + dv, d, dv, dtype)
     q, k, v, do = (t for t, _ in pairs)
     args = (True, d ** -0.5, 0.0, 0.0, BLOCK, BLOCK)
@@ -165,7 +180,8 @@ def test_pad_and_slice_equals_unpadded_plain_bit_for_bit(d, dv, w, dtype):
     (64, 64, torch.float16, True), (96, 96, torch.bfloat16, True),
     (192, 128, torch.bfloat16, True), (20, 20, torch.bfloat16, False),
     (36, 28, torch.float16, False), (20, 20, torch.float32, True),
-    (90, 90, torch.float32, True)])
+    (90, 90, torch.float32, True), (576, 512, torch.bfloat16, True),
+    (300, 290, torch.float16, False)])
 def test_cuda_branch_reads_in_place_where_the_tma_can(d, dv, dtype,
                                                       in_place):
     """16-bit tensors whose rows are a multiple of 16 bytes (d and dv
@@ -182,13 +198,39 @@ def test_kernel_width_is_the_next_instantiation(d, dv, w):
     assert w in fa._KERNEL_HEAD_DIMS
 
 
-def test_widths_above_256_raise_with_the_limit():
-    with pytest.raises(ValueError, match="at most 256"):
-        fa.kernel_width(257, 64)
-    t = {"q": torch.zeros(1, 64, 2, 64), "k": torch.zeros(1, 64, 2, 64),
-         "v": torch.zeros(1, 64, 2, 320)}
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        fa._check_cuda("flash_fwd", t)
+@pytest.mark.parametrize("d,dv", [(257, 64), (64, 320), (576, 512),
+                                  (1024, 1024)])
+def test_widths_above_256_run_the_wide_instantiation(d, dv):
+    """Past the widest instantiation a launch runs the wide one, which the
+    CUDA check takes."""
+    assert fa.kernel_width(d, dv) == fa._KERNEL_WIDE
+    assert fa._KERNEL_WIDE not in fa._KERNEL_HEAD_DIMS
+    t = {"q": torch.zeros(1, 64, 2, d), "k": torch.zeros(1, 64, 2, d),
+         "v": torch.zeros(1, 64, 2, dv)}
+    assert fa._check_cuda("flash_fwd", t) == 0
+
+
+def test_wide_plan_covers_every_output_column_once():
+    """For d and dv from 1 to 1100, each wide kernel's blocks (one per grid
+    z) write every column of each of its outputs exactly once, in chunks
+    of at most WIDE_CHUNK, as many blocks as the launch's grid has."""
+    def chunks(w):
+        return -(-w // fa.WIDE_CHUNK)
+    for w in range(1, 1101):
+        for d, dv in ((w, w), (w, 1101 - w), (1101 - w, w)):
+            want = {"flash_fwd": {"o": dv}, "flash_bwd_dq": {"dq": d},
+                    "flash_bwd_dkv": {"dv": dv, "dk": d}}
+            grid_z = {"flash_fwd": chunks(dv), "flash_bwd_dq": chunks(d),
+                      "flash_bwd_dkv": chunks(dv) + chunks(d)}
+            for kern, outs in want.items():
+                plan = fa.wide_plan(kern, d, dv)
+                assert len(plan) == grid_z[kern], (kern, d, dv)
+                for out, width in outs.items():
+                    cols = [c for o, c0, c1 in plan if o == out
+                            for c in range(c0, c1)]
+                    assert cols == list(range(width)), (kern, out, d, dv)
+                assert all(0 < c1 - c0 <= fa.WIDE_CHUNK
+                           for _, c0, c1 in plan)
 
 
 # ---------------------------------------------------------------------------
@@ -202,12 +244,12 @@ def _flash_from_64(monkeypatch):
     monkeypatch.setenv("HOROVOD_FLASH_MIN_SEQ", "64")
 
 
-def _ref_fp16_step(params, tokens):
+def _ref_fp16_step(cfg, params, tokens):
     import optax
     from horovod_tpu.models.gpt import GptDecoder as RefGpt
     from horovod_tpu.parallel import dp as ref_dp
     from horovod_tpu.parallel import mesh as mesh_lib
-    model = RefGpt(dtype=jnp.float16, **cases.GPT_CFG)
+    model = RefGpt(dtype=jnp.float16, **cfg)
     mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(data=1), jax.devices()[:1])
     opt = optax.adamw(cases.LR)
 
@@ -224,30 +266,25 @@ def _ref_fp16_step(params, tokens):
     return out
 
 
-def test_tiny_gpt_fp16_step_matches_reference(_flash_from_64):
-    """One AdamW step of the tiny GPT with fp16 compute (fp32 params) on
-    the flash path, from the same weights on the same tokens. fp16 keeps
-    11 bits: the loss agrees within rtol 2e-3, each parameter's gradient
-    (the first moment over 1 - b1) within 2e-2 normwise, and AdamW's first
-    step, lr * g / (|g| + eps), moves no parameter more than 2 lr from the
-    reference's. The key bias's gradient is zero in exact arithmetic
-    (softmax ignores a per-query constant): both sides give rounding noise
-    there, which only the 2 lr bound holds."""
+def _gpt_fp16_step_matches_reference(cfg):
+    """One AdamW step of a tiny GPT of ``cfg`` with fp16 compute (fp32
+    params) on the flash path against the reference's, from the same
+    weights on the same tokens (the bounds: the two tests below)."""
     from horovod_tpu.models.gpt import GptDecoder as RefGpt
     from horovod_tpu_torch.models.convert import from_flax_params
     from horovod_tpu_torch.models.gpt import GptDecoder, lm_loss
-    init = RefGpt(dtype=jnp.float16, **cases.GPT_CFG).init(
+    init = RefGpt(dtype=jnp.float16, **cfg).init(
         jax.random.key(0), jnp.zeros((2, GPT_T), jnp.int32))
     params = jax.tree_util.tree_map(np.asarray, init["params"])
     tokens = np.random.RandomState(1).randint(
-        0, cases.GPT_CFG["vocab"], (2, GPT_T)).astype(np.int64)
-    out = _ref_fp16_step(params, tokens)
+        0, cfg["vocab"], (2, GPT_T)).astype(np.int64)
+    out = _ref_fp16_step(cfg, params, tokens)
     adam = out.opt_state[0]
     want_params = from_flax_params(jax.tree_util.tree_map(np.asarray,
                                                           out.params))
     want_mu = from_flax_params(jax.tree_util.tree_map(np.asarray, adam.mu))
 
-    model = GptDecoder(dtype=torch.float16, **cases.GPT_CFG)
+    model = GptDecoder(dtype=torch.float16, **cfg)
     model.load_state_dict(from_flax_params(params), strict=True)
     fa.reset_launch_counts()
     hvd.init(device="cpu")
@@ -267,6 +304,25 @@ def test_tiny_gpt_fp16_step_matches_reference(_flash_from_64):
         assert name.endswith("attn.key.bias") or norm <= 2e-2, (name, norm)
         assert np.all(np.abs(got[f"param/{name}"] - w.numpy())
                       <= 2.01 * cases.LR), name
+
+
+def test_tiny_gpt_fp16_step_matches_reference(_flash_from_64):
+    """One AdamW step of the tiny GPT with fp16 compute (fp32 params) on
+    the flash path, from the same weights on the same tokens. fp16 keeps
+    11 bits: the loss agrees within rtol 2e-3, each parameter's gradient
+    (the first moment over 1 - b1) within 2e-2 normwise, and AdamW's first
+    step, lr * g / (|g| + eps), moves no parameter more than 2 lr from the
+    reference's. The key bias's gradient is zero in exact arithmetic
+    (softmax ignores a per-query constant): both sides give rounding noise
+    there, which only the 2 lr bound holds."""
+    _gpt_fp16_step_matches_reference(cases.GPT_CFG)
+
+
+def test_tiny_gpt_one_head_of_512_step_matches_reference(_flash_from_64):
+    """The same step and bounds at hidden 512 and one head: d 512, a width
+    only the wide kernels take on the card (two 256-column chunks)."""
+    _gpt_fp16_step_matches_reference(dict(cases.GPT_CFG, hidden=512,
+                                          heads=1, mlp_dim=1024))
 
 
 @pytest.mark.parametrize("example", ["gpt_train", "elastic_train"])

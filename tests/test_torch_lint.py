@@ -236,10 +236,13 @@ def test_rules_are_the_python_rules():
     ("arity", "_build.py", 8, "declare 6 parameter(s) but the C signature"),
     ("width", "flash_attention.py", 6, "(dtype 1, head_dim 256), which "
                                        "HVD_FLASH_DISPATCH lacks"),
+    ("wide", "csrc/flash_common.cuh", 14, "instantiates (dtype 1, head_dim "
+                                          "0), which _KERNEL_DTYPES"),
 ])
 def test_hvl104_fires_on_each_drift(name, path, line, words):
-    """An unbound export, a wrong arity and a width the dispatch lacks,
-    each flagged at its line on the side that drifted."""
+    """An unbound export, a wrong arity, a width the dispatch lacks and a
+    wide case the Python side lacks, each flagged at its line on the side
+    that drifted."""
     fixture = FIXTURES / f"hvl104_{name}"
     findings, fired = rules_in(f"hvl104_{name}", rules={"HVL104"})
     assert fired == ["HVL104"]
@@ -252,7 +255,8 @@ def test_hvl104_fires_on_each_drift(name, path, line, words):
 def test_hvl104_clean_fixture_and_the_port():
     """The clean fixture lints clean under every rule, and HVL104 finds
     nothing in the port, whose sides it does read: five bound exports,
-    and fifteen dispatch cases equal to the Python side's."""
+    and eighteen dispatch cases (fifteen narrow, three wide) equal to the
+    Python side's."""
     import ast
     from horovod_tpu_torch.lint import abi_rules
     from horovod_tpu_torch.ops import _build
@@ -269,7 +273,8 @@ def test_hvl104_clean_fixture_and_the_port():
     cases = abi_rules.parse_dispatch((ops / "csrc" / "flash_common.cuh")
                                      .read_text())
     assert set(cases) == {(c, w) for c in fa._KERNEL_DTYPES.values()
-                          for w in fa._KERNEL_HEAD_DIMS}
+                          for w in fa._KERNEL_HEAD_DIMS + (fa._KERNEL_WIDE,)}
+    assert len(cases) == 18
     _, signatures = abi_rules.parse_build(ast.parse(
         (ops / "_build.py").read_text()))
     assert {s: n for s, (_, n, _) in signatures.items()} == \

@@ -1,0 +1,6 @@
+"""HVL104 trigger fixture (a wide case the Python side lacks): the dtype codes and widths of the dispatch."""
+
+import torch
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_HEAD_DIMS = (64, 128)
